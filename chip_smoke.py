@@ -16,12 +16,14 @@ Phases, in order; any failure exits non-zero and no result is printed:
    K3 at its three sites on the flagship plan (4 bands) and on the field
    plan (one band) — (K1, K2 and K4 bitwise; K3 bitwise on integer-valued
    sums and, on real values, within the f32 summation bound of the exact
-   sum), each timed on the device with CUDA events
-   (``cuda_ms``) beside its plain version, its bound and, for K3 and K4,
-   the one PyTorch call that computes the same function (``index_add_``,
-   ``index_select``); then the bodies past the
-   shared-memory budgets (K1 streaming its keys, K3 adding in device
-   memory), which the main path's shapes do not take;
+   sum), each timed on the device with CUDA events (``cuda_ms``) beside
+   its plain version, its bound and the one PyTorch call that computes
+   the same function where there is one (``torch.quantile`` on an unfold
+   view for K2, ``index_add_`` for K3, ``index_select`` for K4); K1 also
+   on rows at the edges of its selection (``fill_edge_rows``), with K1's
+   and K3's resident blocks per SM; then what the main path's shapes do
+   not take: K1's second body (keys in device scratch) and K3 on a
+   layout that stresses its one body (``window_sum_stress_case``);
 4. small-shape chain: the BENCH_SMALL observation through the port on
    the card and, with the same inputs, on the CPU (plain versions);
 5. full-width chain: F=19 feeds x B=4 bands x C=1024 channels x 10 CES
@@ -29,7 +31,8 @@ Phases, in order; any failure exits non-zero and no result is printed:
    50 — one warm-up run, then one timed run with every kernel's launch
    counter set to 0 just before it and read just after;
 6. profile: one more full-width run under ``torch.profiler`` for the
-   device time per kernel and the device's busy share;
+   device time per kernel (K1, K2 and K3 per launch and as a share of
+   device time) and the device's busy share;
 7. field run (``comapreduce_tpu_torch/fieldrun.py``): the band solve
    ``cli.run_destriper.solve_band`` with the ground template and the
    two-level preconditioner (block 8), 100 iterations, threshold 1e-6 —
@@ -38,7 +41,8 @@ Phases, in order; any failure exits non-zero and no result is printed:
    135 700 samples (10 313 200 per band, 76 ground groups) on the
    480x480 field, all four bands, each with the K3 and K4 launch
    counters set to 0 just before its solve and read just after; then one
-   more band under ``torch.profiler``. Phase 3 holds K3 and K4 at this
+   more band under ``torch.profiler`` (K3 and K4 per launch and as a
+   share of device time). Phase 3 holds K3 and K4 at this
    path's shapes against their plain versions, and K4 on every lane
    kind.
 
@@ -213,6 +217,86 @@ def check_window_sum(label, vals, ids, base, window, chunk, out_size):
     return float((got - want).abs().max()), int(n.max())
 
 
+def window_sum_stress_case(seed: int = 21):
+    """A K3 layout that stresses its one body (numpy; R = 4 values go
+    with it): ``(ids, base, window, chunk, out_size)`` over 64 chunks of
+    8192 sorted ids in [0, 2**21), so the window is wider than 32 768,
+    with a run of 5000 equal ids across a chunk boundary and a run of 3000
+    inside a chunk (both longer than a warp's 256 and a block's 1024
+    elements, and across their boundaries), 1000 shuffled ids, a window
+    start clipped at 0, one raised past its chunk's first ids, one clipped
+    at ``out_size`` and a last chunk of sentinel ids."""
+    rng = np.random.default_rng(seed)
+    chunk, n_chunks, out_size = 8192, 64, 1 << 21
+    ids = np.sort(rng.integers(0, out_size, chunk * n_chunks))
+    a = 3 * chunk - 3000
+    ids[a:a + 5000] = ids[a]
+    b = 10 * chunk + 1500
+    ids[b:b + 3000] = ids[b]
+    c = 40 * chunk + 100
+    ids[c:c + 1000] = rng.permutation(ids[c:c + 1000])
+    ids[-chunk:] = out_size + 3
+    blocks = ids.reshape(n_chunks, chunk)
+    base = blocks.min(axis=1)
+    span = int((blocks[:-1].max(axis=1) - base[:-1] + 1).max())
+    window = -(-span // 128) * 128
+    if window <= 32768:
+        raise SystemExit(f"K3 stress case: window {window} is not past "
+                         "32 768")
+    base[0] = -7                        # clips to 0
+    base[20] += 100                     # ids below the window drop
+    base[62] = out_size + 5             # clips to out_size: all drop
+    base[-1] = out_size + 3             # the sentinel chunk
+    return ids, base, window, chunk, out_size
+
+
+def fill_edge_rows(L: int, seed: int = 23):
+    """K1 rows at the edges of its selection (numpy, ``tod`` and ``mask``
+    f32[10, L]): all keys equal; one valid stride-4 sample; -0.0 and +0.0
+    as the middles, ±inf beside them; NaN of both signs and the sentinel-colliding NaN
+    pattern among masked-in samples; ±inf as the two middles (a NaN
+    fill); tied middles; middles parting in the first digit; nothing
+    valid; and two rows of production-scale counts. Every row takes the
+    stride-4 median or has nothing valid, so K1 is bitwise there."""
+    rng = np.random.default_rng(seed)
+    rows = 10
+    tod = (4.5e7 * (1 + 0.01 * rng.standard_normal((rows, L)))).astype(
+        np.float32)
+    mask = (rng.random((rows, L)) > 0.05).astype(np.float32)
+    grid = np.arange(0, L, 4)
+    tod[0] = np.float32(4.5e7)
+    mask[0] = 1.0
+    mask[0, 1::4] = 0.0
+    mask[1, grid] = 0.0
+    mask[1, grid[17]] = 1.0
+    half = grid.size // 2
+    tod[2, grid[:half]] = -0.0                   # middles -0.0 and +0.0
+    tod[2, grid[half:]] = 0.0
+    tod[2, grid[:100]] = -np.inf
+    tod[2, grid[-100:]] = np.inf
+    mask[2, grid] = 1.0
+    bits = tod[3].view(np.int32)
+    bits[grid[::7]] = 0x7FC00000                 # +NaN
+    bits[grid[3::7]] = np.int32(-0x400000)       # -NaN (0xFFC00000)
+    bits[grid[5::97]] = 0x7FFFFFFF               # the sentinel's pattern
+    bits[1::9] = 0x7FC00001                      # masked-in, off the grid
+    mask[3, 1::9] = 1.0
+    mask[3, grid[::7]] = 1.0
+    mask[3, grid[3::7]] = 1.0
+    tod[4, grid] = np.float32(np.inf)
+    tod[4, grid[:half]] = -np.inf
+    mask[4, grid] = 1.0
+    tod[5, grid] = rng.choice(np.array([1.0, 2.0, 2.0, 3.0], np.float32),
+                              grid.size)
+    mask[5, grid] = 0.0
+    mask[5, grid[:400]] = 1.0
+    mask[6, grid] = 0.0
+    mask[6, grid[[4, 9]]] = 1.0
+    tod[6, grid[4]], tod[6, grid[9]] = -1e30, 1e30
+    mask[7] = 0.0
+    return tod, mask
+
+
 def phase_environment():
     import torch
 
@@ -309,10 +393,11 @@ def phase_kernel_parity(plan, full, field_plan):
     import torch
 
     from comapreduce_tpu_torch.mapmaking.cuda_binning import (
-        BIN_SMEM_BUDGET, _window_dest, binned_window_sum,
+        _window_dest, binned_window_sum, binned_window_sum_occupancy,
         binned_window_sum_plain, windowed_gather, windowed_gather_plain)
     from comapreduce_tpu_torch.ops.cuda_median import (
-        masked_fill, masked_fill_plain, rolling_median_windows,
+        fill_row_on_chip, masked_fill, masked_fill_occupancy,
+        masked_fill_plain, rolling_median_windows,
         rolling_median_windows_plain)
     from comapreduce_tpu_torch.ops.reduce import scan_starts_lengths
 
@@ -349,8 +434,23 @@ def phase_kernel_parity(plan, full, field_plan):
         replaces="comapreduce_tpu/ops/pallas_median.py:306",
         shape=[rows, L], max_abs_err=float((got - want).abs().max()),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-        library_ms=None)
+        library_ms=None, row_on_chip=fill_row_on_chip(L),
+        blocks_per_sm=masked_fill_occupancy(L),
+        # not the same function: one PyTorch pass that reads two arrays of
+        # K1's shape and writes a third, the rate a streaming kernel
+        # reaches on this card
+        stream_floor_ms=cuda_ms(lambda: torch.add(tod, mask, out=got)))
     del tod, mask, got, want
+    # K1 at the edges of its selection, at the main path's L and at an
+    # odd L (the scalar loads), bitwise
+    for n in (L, L - 1):
+        t_e, m_e = (torch.as_tensor(a, device=dev)
+                    for a in fill_edge_rows(n))
+        got = masked_fill(t_e, m_e)
+        torch.cuda.synchronize()
+        if not bits_equal(got, masked_fill_plain(t_e, m_e)):
+            raise SystemExit(f"K1 masked_fill disagrees with its plain "
+                             f"version on the edge rows at L={n}")
 
     # K2 at the exact level of the two-level 6000 filter: 2 scans x 4
     # bands rows of the block-median series, window 500
@@ -374,6 +474,10 @@ def phase_kernel_parity(plan, full, field_plan):
     # its window (wb compares); the kernel's 34 bisection-style passes
     # are its own cost, not the function's
     b_ms, by = bound((x.numel() + got.numel()) * 4, x.shape[0] * T2 * wb)
+    # the one PyTorch call computing the same function: the 0.5 quantile
+    # of each window (linear interpolation: the midpoint of the two
+    # middles, NaN for a window holding NaN) on an unfold view
+    lib = torch.quantile(x.unfold(-1, wb, 1), 0.5, dim=-1)
     entries["rolling_median_windows"] = dict(
         name="rolling_median_windows", route="cuda",
         source="comapreduce_tpu_torch/csrc/rolling_median.cu",
@@ -381,7 +485,10 @@ def phase_kernel_parity(plan, full, field_plan):
         shape=[x.shape[0], P, wb], max_abs_err=float(
             (got - want).nan_to_num().abs().max()),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-        library_ms=None)
+        library_ms=cuda_ms(lambda: torch.quantile(
+            x.unfold(-1, wb, 1), 0.5, dim=-1), reps=20),
+        library_max_abs_err=float((lib - got).abs().max()))
+    del lib
 
     # K3 at its three call sites on each full-width path: the flagship
     # plan with its 4 bands as right-hand sides, and the field plan one
@@ -408,8 +515,7 @@ def phase_kernel_parity(plan, full, field_plan):
                 plain_ms=cuda_ms(lambda: binned_window_sum_plain(
                     vals, ids, base, window, chunk, out_size), reps=5),
                 library_ms=cuda_ms(lambda: stage.index_add_(1, dest, vals),
-                                   reps=20),
-                smem=4 * R * window <= BIN_SMEM_BUDGET)
+                                   reps=20))
             sites[site]["bound_ms"], sites[site]["bound_by"] = bound(
                 (R * M + M + M // chunk + R * out_size) * 4, R * n_valid)
             del vals, dest, stage
@@ -423,6 +529,9 @@ def phase_kernel_parity(plan, full, field_plan):
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         library_ms=head["library_ms"], headline_site="rank_sum",
         sites=sites)
+    (entries["binned_window_sum"]["blocks_per_sm"],
+     entries["binned_window_sum"]["elements_per_block"]) = \
+        binned_window_sum_occupancy()
     # K4 at its one call site, the ground solve's offset-order gather of
     # a per-offset coefficient (R = 1, S = n_off, M = P_pad) on the full
     # field plan
@@ -468,26 +577,24 @@ def phase_kernel_parity(plan, full, field_plan):
 
 
 def phase_large_paths():
-    """The kernels' bodies for shapes past their shared-memory budgets,
-    which the main path's shapes never take: K1 streaming its keys from
-    device scratch (L = 300 000 and 300 001, the float4 and the scalar
-    body) and K3 accumulating straight into device memory (4 rows x a
-    32 768-wide window). Each against its plain version: K1 bitwise (every
-    row takes the stride-4 median), K3 as ``check_window_sum`` holds it."""
+    """What the main path's shapes never take, each against its plain
+    version: K1's second body, its keys in device scratch and its row read
+    twice (L = 300 000 and 300 001, the float4 and the scalar loads),
+    bitwise (every row takes the stride-4 median); K3's one body on
+    ``window_sum_stress_case`` (4 rows), as ``check_window_sum`` holds
+    it."""
     import torch
 
-    from comapreduce_tpu_torch.mapmaking.cuda_binning import \
-        BIN_SMEM_BUDGET
     from comapreduce_tpu_torch.ops.cuda_median import (
-        FILL_SMEM_BUDGET, masked_fill, masked_fill_plain)
+        fill_row_on_chip, masked_fill, masked_fill_plain)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(13)
     out = {}
     for L in (300_000, 300_001):
-        if not 4 * ((L + 3) // 4) > FILL_SMEM_BUDGET:
-            raise SystemExit(f"K1 at L={L} would not stream its keys")
+        if fill_row_on_chip(L):
+            raise SystemExit(f"K1 at L={L} would keep its row on chip")
         tod = 10.0 + torch.randn((16, L), generator=g, device=dev)
         mask = (torch.rand((16, L), generator=g, device=dev) > 0.05).float()
         tod[0, 7] = float("nan")
@@ -496,21 +603,18 @@ def phase_large_paths():
         want = masked_fill_plain(tod, mask)
         torch.cuda.synchronize()
         if not bits_equal(got, want):
-            raise SystemExit(f"K1 streaming body at L={L} disagrees with "
+            raise SystemExit(f"K1's second body at L={L} disagrees with "
                              "its plain version")
         out[f"masked_fill_L{L}"] = float((got - want).abs().max())
-    R, chunk, n_chunks, out_size = 4, 8192, 64, 1 << 21
-    ids = torch.sort(torch.randint(0, out_size, (chunk * n_chunks,),
-                                   generator=g, device=dev)).values
-    blocks = ids.reshape(n_chunks, chunk)
-    base = blocks[:, 0]
-    window = -(-int((blocks[:, -1] - base + 1).max()) // 128) * 128
-    if not 4 * R * window > BIN_SMEM_BUDGET:
-        raise SystemExit(f"K3 at window {window} would use shared memory")
-    vals = torch.randn((R, ids.numel()), generator=g, device=dev)
-    err, _ = check_window_sum("device-memory body", vals, ids.int(),
-                              base.int(), window, chunk, out_size)
+    ids, base, window, chunk, out_size = window_sum_stress_case()
+    vals = torch.randn((4, ids.size), generator=g, device=dev)
+    err, n_max = check_window_sum(
+        "stress case", vals, torch.as_tensor(ids, dtype=torch.int32,
+                                             device=dev),
+        torch.as_tensor(base, dtype=torch.int32, device=dev), window,
+        chunk, out_size)
     out["binned_window_sum_window"] = window
+    out["binned_window_sum_max_terms"] = n_max
     out["binned_window_sum"] = err
     log("large_paths", json.dumps(out))
     return out
@@ -630,10 +734,21 @@ def phase_full_chain(full, plan):
     return line, launches, inputs
 
 
+def kernel_share(kernels, name: str, busy_ms: float) -> dict:
+    """In-loop device time of one kernel from a profile's CUDA events:
+    total ms, launches, ms per launch and share of all kernel time."""
+    hit = [e for e in kernels if name in e.key]
+    ms = sum(e.self_device_time_total for e in hit) / 1e3
+    n = sum(e.count for e in hit)
+    return {"ms": ms, "count": n, "ms_per_launch": ms / n if n else None,
+            "share_of_device_time": ms / busy_ms if busy_ms else None}
+
+
 def phase_profile(inputs, plan, top: int = 15):
     """One more full-width run under ``torch.profiler`` (after the timed
     run, so the profiler's cost never lands in the headline wall): device
-    time per kernel and the device's busy share of the profiled wall."""
+    time per kernel, K1's, K2's and K3's time per launch and share of
+    device time, and the device's busy share of the profiled wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -652,6 +767,11 @@ def phase_profile(inputs, plan, top: int = 15):
                  "device_kernel_ms": busy_ms,
                  "device_busy_share": (busy_ms / 1e3 / out["wall_s"]
                                        if busy_ms else None),
+                 "k1": kernel_share(kernels, "masked_fill_kernel", busy_ms),
+                 "k2": kernel_share(kernels, "rolling_median_kernel",
+                                    busy_ms),
+                 "k3": kernel_share(kernels, "binned_window_sum_kernel",
+                                    busy_ms),
                  "top_kernels": rows}
     log("profile", json.dumps({k: v for k, v in prof_line.items()
                                if k != "top_kernels"}))
@@ -832,9 +952,10 @@ def phase_field(geo, plan, stage_log):
 
 
 def phase_field_profile(data, stage_log, top: int = 12):
-    """One more full-width band under ``torch.profiler``: device time of
-    K3 and K4 and the device's busy share of the solve (the host's coarse
-    build excluded)."""
+    """One more full-width band under ``torch.profiler``: K3's and K4's
+    device time, per launch and as a share of device time, and the
+    device's busy share of the solve (the host's coarse build
+    excluded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -850,22 +971,15 @@ def phase_field_profile(data, stage_log, top: int = 12):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-
-    def named(part):
-        hit = [e for e in kernels if part in e.key]
-        return (sum(e.self_device_time_total for e in hit) / 1e3,
-                sum(e.count for e in hit))
-
-    k3_ms, k3_n = named("binned_window_sum_kernel")
-    k4_ms, k4_n = named("windowed_gather_kernel")
+    k3 = kernel_share(kernels, "binned_window_sum_kernel", busy_ms)
+    k4 = kernel_share(kernels, "windowed_gather_kernel", busy_ms)
     solve_s = wall - stage_log.seconds("coarse_pattern") - stage_log.seconds(
         "coarse_build")
     kernels.sort(key=lambda e: -e.self_device_time_total)
     out = {"profiled_wall_s": wall, "profiled_solve_s": solve_s,
            "cg_iters": int(res.n_iter), "device_kernel_ms": busy_ms,
            "device_busy_share_of_solve": busy_ms / 1e3 / solve_s,
-           "k3_ms": k3_ms, "k3_count": k3_n, "k4_ms": k4_ms,
-           "k4_count": k4_n,
+           "k3": k3, "k4": k4,
            "top_kernels": [{"kernel": e.key[:120],
                             "ms": e.self_device_time_total / 1e3,
                             "count": e.count} for e in kernels[:top]]}

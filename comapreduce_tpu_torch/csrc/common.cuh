@@ -1,6 +1,6 @@
 // Shared device helpers for the selection kernels: the monotone f32 ->
-// signed i32 key map, the overflow-safe bisection midpoint, the
-// equal-middles median midpoint and a block-wide all-reduce.
+// signed i32 key map, the overflow-safe bisection midpoint and the
+// equal-middles median midpoint.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,31 +32,4 @@ __device__ __forceinline__ int bisect_mid(int lo, int hi) {
 // as two separate IEEE operations (no contraction).
 __device__ __forceinline__ float median_mid(float lo, float hi) {
   return lo == hi ? lo : __fmul_rn(0.5f, __fadd_rn(lo, hi));
-}
-
-struct SumOp {
-  template <typename T>
-  __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
-};
-
-struct MinOp {
-  __device__ __forceinline__ int operator()(int a, int b) const {
-    return a < b ? a : b;
-  }
-};
-
-// Block-wide reduction whose result every thread receives. blockDim.x
-// must be a multiple of 32; ``red`` holds one slot per warp. The warp
-// partials combine in a fixed order, so float sums are deterministic.
-template <typename T, typename Op>
-__device__ __forceinline__ T block_allreduce(T v, Op op, T* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();                       // earlier readers of ``red`` done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  T r = red[0];
-  const int nw = blockDim.x >> 5;
-  for (int w = 1; w < nw; ++w) r = op(r, red[w]);
-  return r;
 }

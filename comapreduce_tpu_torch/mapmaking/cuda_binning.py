@@ -6,12 +6,14 @@ Port of ``comapreduce_tpu/mapmaking/pallas_binning.py``:
 ``pointing_plan``, where the reference defines it) replaces
 ``binned_window_sum_pallas`` (``pallas_binning.py:204``, body
 ``_scatter_kernel`` ``:173``). Bound: bytes — values R x M f32 and ids
-M i32 read once, out R x out_size f32 written once. Design: one block
-per chunk accumulates its ``R x window`` bins with shared-memory
-atomics and flushes the non-zero bins with global atomics (the TPU
-kernel relied on an ordered grid for race freedom; CUDA blocks run
-concurrently and neighbouring windows overlap). Windows too wide for
-shared memory add straight into device memory with atomics. Float
+M i32 read once, out R x out_size f32 written once. Design: the grid
+tiles the element axis (independent of the plan's chunk); a thread sums
+its runs of equal in-window ids in registers, a warp joins runs across
+its lanes with a segmented scan keyed on the id, and only the lane
+holding a run's end adds it to device memory with one atomic per band —
+the plan's ids are sorted, so runs are long (the TPU kernel relied on an
+ordered grid for race freedom; CUDA blocks run concurrently). One body
+serves every window width: nothing is sized to the window. Float
 atomics change the summation order from run to run, so the kernel
 agrees with the plain version to f32 summation-order tolerance.
 
@@ -40,11 +42,8 @@ import torch
 from comapreduce_tpu_torch import _build
 
 __all__ = ["binned_window_sum", "binned_window_sum_plain",
-           "windowed_gather", "windowed_gather_plain"]
-
-# shared memory one K3 block may use for its R x window accumulator
-# before it accumulates in device memory instead (H100: 227 KB a block)
-BIN_SMEM_BUDGET = 200 * 1024
+           "binned_window_sum_occupancy", "windowed_gather",
+           "windowed_gather_plain"]
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -112,20 +111,35 @@ def binned_window_sum(values: torch.Tensor, ids: torch.Tensor,
         return out.reshape(lead + (out_size,))
     i32 = ids.to(torch.int32).contiguous()
     b32 = base.to(torch.int32).contiguous()
-    use_smem = 4 * R * window <= BIN_SMEM_BUDGET
+    # 16-byte loads of ids and of each band's values
+    vec = (M % 4 == 0 and v.data_ptr() % 16 == 0
+           and i32.data_ptr() % 16 == 0)
     fn = _build.c_function("binned_window_sum", "cr_binned_window_sum",
                            [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I,
                             _VP])
     binned_window_sum.launches += 1
     _build.check(fn(v.data_ptr(), i32.data_ptr(), b32.data_ptr(),
                     out.data_ptr(), M, R, int(window), int(chunk),
-                    int(out_size), int(use_smem),
+                    int(out_size), int(vec),
                     torch.cuda.current_stream().cuda_stream),
                  "binned_window_sum")
     return out.reshape(lead + (out_size,))
 
 
 binned_window_sum.launches = 0
+
+
+def binned_window_sum_occupancy() -> tuple[int, int]:
+    """``(blocks per SM, elements per block)`` of the K3 launch on the
+    current card: its resident blocks per SM, as the CUDA occupancy API
+    gives them, and the elements of ``ids`` one block takes."""
+    fn = _build.c_function("binned_window_sum",
+                           "cr_binned_window_sum_occupancy", [_VP])
+    per_block = ctypes.c_int(0)
+    n = fn(ctypes.byref(per_block))
+    if n < 0:
+        _build.check(-n, "binned_window_sum occupancy")
+    return n, per_block.value
 
 
 def windowed_gather_plain(src: torch.Tensor, ids: torch.Tensor,

@@ -10,10 +10,14 @@ window) are not limits of these kernels.
 K1 ``masked_fill`` (``csrc/masked_fill.cu``) replaces
 ``masked_fill_pallas`` (``pallas_median.py:306``, body ``_fill_kernel``
 ``:240``). Bound: bytes — read tod + mask, write out. Design: one block
-per row; only the stride-4 keys (L/4 i32) stay resident in shared
-memory for the 33 selection passes, so the row crosses device memory
-once for the keys and sums and once for the select; rows whose keys do
-not fit shared memory stream them from a device scratch buffer.
+per row, and the row crosses device memory once: the load pass keeps
+tod, the mask bits and the stride-4 keys in shared memory (21 bytes per
+4 samples, three rows resident per SM at the main path's L = 13 568),
+the median is a radix select (four 8-bit digits, one warp-aggregated
+shared histogram each, both order statistics at once) and the write
+pass selects from shared memory. Rows past the shared-memory budget take
+the second body, chosen by shape: keys in a device scratch buffer, and
+the row read again to write.
 
 K2 ``rolling_median_windows`` (``csrc/rolling_median.cu``) replaces
 ``rolling_median_windows_pallas`` (``pallas_median.py:174``, body
@@ -36,11 +40,12 @@ from comapreduce_tpu_torch import _build
 from comapreduce_tpu_torch.ops.stats import (_median_mid, f32_key, key_f32,
                                             masked_median)
 
-__all__ = ["masked_fill", "masked_fill_plain", "rolling_median_windows",
+__all__ = ["fill_row_on_chip", "masked_fill", "masked_fill_occupancy",
+           "masked_fill_plain", "rolling_median_windows",
            "rolling_median_windows_plain"]
 
-# shared memory a K1 block may give its keys before they stream from a
-# device scratch buffer instead (of the 227 KB an H100 block can use)
+# shared memory a K1 block may give its row (of the 227 KB an H100 block
+# can use); longer rows take the second body, keys in device scratch
 FILL_SMEM_BUDGET = 200 * 1024
 
 # outputs per step of K2's plain version (bounds its rows x chunk x window
@@ -91,22 +96,39 @@ def masked_fill(tod: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(t)
     if rows == 0 or L == 0:
         return out.reshape(tod.shape)
-    L4 = (L + 3) // 4
-    use_smem = 4 * L4 <= FILL_SMEM_BUDGET
-    scratch = None if use_smem else torch.empty(
-        (rows, L4), dtype=torch.int32, device=t.device)
+    on_chip = fill_row_on_chip(L)
+    scratch = None if on_chip else torch.empty(
+        (rows, (L + 3) // 4), dtype=torch.int32, device=t.device)
     vec = (L % 4 == 0 and all(p.data_ptr() % 16 == 0 for p in (t, m, out)))
     fn = _build.c_function("masked_fill", "cr_masked_fill",
                            [_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _VP])
     masked_fill.launches += 1
     _build.check(fn(t.data_ptr(), m.data_ptr(), out.data_ptr(),
                     0 if scratch is None else scratch.data_ptr(),
-                    rows, L, int(use_smem), int(vec), _stream()),
+                    rows, L, int(on_chip), int(vec), _stream()),
                  "masked_fill")
     return out.reshape(tod.shape)
 
 
 masked_fill.launches = 0
+
+
+def fill_row_on_chip(L: int) -> bool:
+    """Whether K1 keeps rows of ``L`` samples on chip: the row, its mask
+    bits and its keys (21 bytes per 4 samples) within
+    :data:`FILL_SMEM_BUDGET`. Longer rows take the second body."""
+    return 21 * ((L + 3) // 4) <= FILL_SMEM_BUDGET
+
+
+def masked_fill_occupancy(L: int) -> int:
+    """Resident K1 blocks (rows) per SM for rows of ``L`` samples on the
+    current card, as the CUDA occupancy API gives them."""
+    fn = _build.c_function("masked_fill", "cr_masked_fill_occupancy",
+                           [_LL, _I])
+    n = fn(L, int(fill_row_on_chip(L)))
+    if n < 0:
+        _build.check(-n, "masked_fill occupancy")
+    return n
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""The port's CUDA kernels on the card: K1 (masked fill) with keys
-streamed from device scratch and K3 (binned window sum) accumulating
-straight into device memory — shapes past their shared-memory budgets,
-which the main path's shapes never take — and K4 (windowed gather) on
-every lane kind (in-window, out-of-window, sentinel ids >= S, clipped
-window starts), each against its plain version.
+"""The port's CUDA kernels on the card: K1 (masked fill) in its second
+body (rows too long to keep on chip, which the main path's shapes never
+take: keys in device scratch) and on rows at the edges of its
+selection, K3 (binned window sum) on a layout that stresses its one body,
+and K4 (windowed gather) on every lane kind (in-window, out-of-window,
+sentinel ids >= S, clipped window starts), each against its plain
+version. The edge rows and the stress layout are ``chip_smoke.py``'s.
 
 This file imports neither ``jax`` nor the JAX package, so it runs on a
 machine with a card and no JAX: ``python -m pytest tests/test_torch_cuda.py``.
@@ -12,8 +13,10 @@ Everywhere else every test skips with a reason.
 Tolerances: K1 is bitwise on rows that take the stride-4 median; a row
 that takes the masked-mean fallback sums ~75 000 samples in another
 order than ``torch.sum``, so it is held to rtol 1e-5 (f32 summation
-order at that length). K3's atomics add in a run-to-run order: 2e-6 of
-the output's scale, as in ``tests/test_torch_pointing_plan.py``. K4
+order at that length). K3's atomics add in a run-to-run order: bitwise on
+integer-valued sums (exact in f32 in any order) and, on real values,
+each bin within gamma(n-1) * sum|x| of its exact f64 sum, a bound that
+holds for every summation order (``chip_smoke.check_window_sum``). K4
 copies one source word per lane: bitwise.
 """
 
@@ -21,14 +24,15 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import fill_edge_rows, window_sum_stress_case
 from comapreduce_tpu_torch.mapmaking.cuda_binning import (
-    BIN_SMEM_BUDGET, binned_window_sum, binned_window_sum_plain,
-    windowed_gather, windowed_gather_plain)
-from comapreduce_tpu_torch.ops.cuda_median import (FILL_SMEM_BUDGET,
+    binned_window_sum, binned_window_sum_plain, windowed_gather,
+    windowed_gather_plain)
+from comapreduce_tpu_torch.ops.cuda_median import (fill_row_on_chip,
                                                    masked_fill,
                                                    masked_fill_plain)
 
-SUM_RTOL = 2e-6
+F32_U = 2.0 ** -24
 
 
 @pytest.fixture
@@ -43,11 +47,11 @@ def _bits(a: np.ndarray) -> np.ndarray:
     return np.where(np.isnan(a), np.float32(np.nan), a).view(np.int32)
 
 
-# L % 4 == 0 takes the float4 body, the odd length the scalar one
+# L % 4 == 0 takes the float4 loads, the odd length the scalar ones
 @pytest.mark.cuda
 @pytest.mark.parametrize("L", [300_000, 300_001])
 def test_cuda_masked_fill_streams_keys_past_smem_budget(cuda_device, L):
-    assert 4 * ((L + 3) // 4) > FILL_SMEM_BUDGET
+    assert not fill_row_on_chip(L)
     rng = np.random.default_rng(L)
     rows = 6
     tod = (10.0 + rng.normal(size=(rows, L))).astype(np.float32)
@@ -70,38 +74,49 @@ def test_cuda_masked_fill_streams_keys_past_smem_budget(cuda_device, L):
     np.testing.assert_allclose(got[3], want[3], rtol=1e-5)
 
 
+# the main path's L (float4 loads) and an odd L (scalar loads)
 @pytest.mark.cuda
-def test_cuda_window_sum_accumulates_in_device_memory(cuda_device):
-    R, chunk, n_chunks, out_size = 4, 8192, 64, 1 << 21
-    M = chunk * n_chunks
+@pytest.mark.parametrize("L", [13568, 13567])
+def test_cuda_masked_fill_edge_rows(cuda_device, L):
+    tod, mask = fill_edge_rows(L)
+    t = torch.as_tensor(tod, device=cuda_device)
+    m = torch.as_tensor(mask, device=cuda_device)
+    got = masked_fill(t, m).cpu().numpy()
+    want = masked_fill_plain(t.cpu(), m.cpu()).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_cuda_window_sum_stress_case(cuda_device):
+    ids, base, window, chunk, out_size = window_sum_stress_case()
+    assert window > 32768
     rng = np.random.default_rng(9)
-    ids = np.sort(rng.integers(0, out_size, M))
-    ids[-chunk // 2:] = out_size + 3          # a sentinel tail drops
-    blocks = ids.reshape(n_chunks, chunk)
-    base = blocks[:, 0]
-    span = int((np.minimum(blocks[:, -1], out_size - 1) - base + 1).max())
-    window = -(-span // 128) * 128
-    assert 4 * R * window > BIN_SMEM_BUDGET
-    vals = torch.as_tensor(rng.normal(size=(R, M)).astype(np.float32),
-                           device=cuda_device)
     it = torch.as_tensor(ids, dtype=torch.int32, device=cuda_device)
     bt = torch.as_tensor(base, dtype=torch.int32, device=cuda_device)
-    before = binned_window_sum.launches
-    got = binned_window_sum(vals, it, bt, window, chunk, out_size)
-    assert binned_window_sum.launches == before + 1
-    want = binned_window_sum_plain(vals.cpu(), it.cpu(), bt.cpu(), window,
-                                   chunk, out_size).numpy()
-    scale = float(np.abs(want).max())
-    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=SUM_RTOL,
-                               atol=SUM_RTOL * scale)
+    args = (window, chunk, out_size)
     # integer values sum exactly in f32 in any order (every partial sum
-    # stays below 2**24), so the routing must match bitwise
-    ints = torch.as_tensor(rng.integers(-2, 3, (R, M)).astype(np.float32),
-                           device=cuda_device)
+    # stays below 2**24: the longest run is 5000 terms), so the routing
+    # must match bitwise
+    ints = torch.as_tensor(rng.integers(-2, 3, (4, ids.size)).astype(
+        np.float32), device=cuda_device)
+    before = binned_window_sum.launches
+    got = binned_window_sum(ints, it, bt, *args)
+    assert binned_window_sum.launches == before + 1
     np.testing.assert_array_equal(
-        binned_window_sum(ints, it, bt, window, chunk, out_size).cpu(),
-        binned_window_sum_plain(ints.cpu(), it.cpu(), bt.cpu(), window,
-                                chunk, out_size))
+        got.cpu(), binned_window_sum_plain(ints.cpu(), it.cpu(), bt.cpu(),
+                                           *args))
+    vals = rng.normal(size=(4, ids.size))
+    got = binned_window_sum(torch.as_tensor(vals.astype(np.float32),
+                                            device=cuda_device),
+                            it, bt, *args).cpu().double()
+    plain64 = [binned_window_sum_plain(torch.as_tensor(x), it.cpu(),
+                                       bt.cpu(), *args)
+               for x in (vals.astype(np.float32).astype(np.float64),
+                         np.abs(vals.astype(np.float32)).astype(np.float64),
+                         np.ones((1, ids.size)))]
+    exact, abs_sum, n = plain64[0], plain64[1], plain64[2][0]
+    ku = (n - 1).clamp(min=0) * F32_U
+    assert bool(((got - exact).abs() <= ku / (1 - ku) * abs_sum).all())
 
 
 @pytest.mark.cuda

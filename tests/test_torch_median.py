@@ -27,8 +27,8 @@ from comapreduce_tpu.ops.pallas_median import (masked_fill_pallas,
 from comapreduce_tpu.ops.reduce import _fill_bad_xla
 from comapreduce_tpu_torch.ops import median_filter as port_mf
 from comapreduce_tpu_torch.ops.cuda_median import (
-    masked_fill, masked_fill_plain, rolling_median_windows,
-    rolling_median_windows_plain)
+    FILL_SMEM_BUDGET, fill_row_on_chip, masked_fill, masked_fill_plain,
+    rolling_median_windows, rolling_median_windows_plain)
 
 
 def _bits(a):
@@ -82,6 +82,16 @@ def test_masked_fill_matches_xla_and_pallas(shape):
                                               jnp.asarray(mask))), mask)
     _check_fill(got, np.asarray(masked_fill_pallas(
         jnp.asarray(tod), jnp.asarray(mask), interpret=True)), mask)
+
+
+def test_masked_fill_keeps_rows_on_chip_within_budget():
+    """K1 keeps a whole row on chip while row, mask bits and keys (21
+    bytes per 4 samples) fit its shared-memory budget — the main path's
+    L = 13 568 does; longer rows take its second body."""
+    assert fill_row_on_chip(13568)
+    assert fill_row_on_chip(4 * (FILL_SMEM_BUDGET // 21))
+    assert not fill_row_on_chip(4 * (FILL_SMEM_BUDGET // 21) + 1)
+    assert not fill_row_on_chip(300_000)
 
 
 def test_masked_fill_scan_mask_rows():
@@ -138,6 +148,28 @@ def test_rolling_windows_negative_tied_and_nan():
     assert (np.isnan(got) == nan_windows).all()
     clean = ~nan_windows
     _assert_bitwise(got[clean], _oracle(x, w)[clean])
+
+
+@pytest.mark.parametrize("shape,w", [((8, 2130), 500), ((3, 700), 37),
+                                     ((4, 640), 100)])
+def test_quantile_on_unfold_is_the_rolling_median(shape, w):
+    """K2's library yardstick, ``torch.quantile`` of each window at 0.5
+    on an unfold view, computes the same function as its plain version:
+    linear interpolation at 0.5 is the midpoint of the two middles
+    (``lo + 0.5 (hi - lo)`` against ``0.5 (lo + hi)``: within one ulp of
+    the scale), and a window holding NaN gives NaN."""
+    rng = np.random.default_rng(w)
+    x = rng.normal(size=shape).astype(np.float32)
+    x[0, 3] = np.nan
+    x[-1, shape[-1] // 2] = np.nan
+    xt = torch.as_tensor(x)
+    want = rolling_median_windows_plain(xt, w).numpy()
+    got = torch.quantile(xt.unfold(-1, w, 1), 0.5, dim=-1).numpy()
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    scale = float(np.nanmax(np.abs(x)))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=float(np.spacing(np.float32(scale))))
 
 
 def test_rolling_windows_rejects_short_rows():

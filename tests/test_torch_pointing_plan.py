@@ -22,6 +22,9 @@ from comapreduce_tpu.mapmaking.pointing_plan import (
 from comapreduce_tpu_torch.convert import (PLAN_ARRAY_FIELDS,
                                            PLAN_STATIC_FIELDS, plan_arrays,
                                            plan_from_reference)
+from comapreduce_tpu_torch.fieldrun import (FIELD_SMALL, OFFSET_LENGTH,
+                                            field_geometry)
+from comapreduce_tpu_torch.flagship import SMALL, observation_geometry
 from comapreduce_tpu_torch.mapmaking.cuda_binning import \
     binned_window_sum_plain
 from comapreduce_tpu_torch.mapmaking.pixel_space import PixelSpace
@@ -100,6 +103,46 @@ def test_plan_from_reference_round_trip():
     assert dv is port.device(torch.device("cpu"))   # cached per device
     with pytest.raises(ValueError, match="missing"):
         plan_from_reference({}, npix=1)
+
+
+def _small_plan(which):
+    """The plan the BENCH_SMALL flagship, the FIELD_SMALL field run or a
+    random pointing (sample chunks of 512, pair chunks of 256) gives."""
+    if which == "bench_small":
+        return build_pointing_plan(observation_geometry(SMALL)[3],
+                                   SMALL.nx * SMALL.ny, SMALL.offset_length)
+    if which == "field_small":
+        return build_pointing_plan(field_geometry(FIELD_SMALL)[0],
+                                   FIELD_SMALL.nx * FIELD_SMALL.ny,
+                                   OFFSET_LENGTH)
+    pix = np.random.default_rng(8).integers(-20, 420, 6000)
+    return build_pointing_plan(pix, 400, 30, sample_chunk=512,
+                               pair_chunk=256)
+
+
+@pytest.mark.parametrize("which", ["bench_small", "field_small", "random"])
+def test_k3_sites_ids_ascending_within_windows(which):
+    """At each of K3's three call sites the plan's ids ascend over the
+    whole array and every chunk lies inside its window, so K3's runs of
+    equal ids are as long as the data allows (K3 is right for ids in any
+    order; its speed rests on this)."""
+    plan = _small_plan(which)
+    perm_off = plan.pair_perm_off.astype(np.int64)
+    sites = {
+        "pair_sum": (plan.sample_pair, plan.sample_base, plan.sample_window,
+                     plan.sample_chunk),
+        "rank_sum": (plan.pair_rank, plan.rank_base, plan.rank_window,
+                     plan.pair_chunk),
+        "off_sum": (plan.pair_offset[perm_off], plan.off_base,
+                    plan.off_window, plan.pair_chunk),
+    }
+    for site, (ids, base, window, chunk) in sites.items():
+        ids = np.asarray(ids, np.int64)
+        assert ids.size % chunk == 0 and ids.size // chunk == base.size
+        assert (np.diff(ids) >= 0).all(), site
+        blocks = ids.reshape(-1, chunk)
+        assert (blocks[:, -1] - blocks[:, 0] + 1 <= window).all(), site
+        assert (blocks[:, 0] == base).all(), site
 
 
 def _windowed(M, out_size, chunk, seed=0):
