@@ -14,22 +14,29 @@ Phases, in order; any failure exits non-zero and no result is printed:
    window sum) and K4 (windowed gather) against their plain PyTorch
    versions on the card, at the shapes the full-width paths give them —
    K3 at its three sites on the flagship plan (4 bands) and on the field
-   plan (one band) — (K1, K2 and K4 bitwise; K3 bitwise on integer-valued
-   sums and, on real values, within the f32 summation bound of the exact
-   sum), each timed on the device with CUDA events (``cuda_ms``) beside
-   its plain version, its bound and the one PyTorch call that computes
-   the same function where there is one (``torch.quantile`` on an unfold
-   view for K2, ``index_add_`` for K3, ``index_select`` for K4); K1 also
-   on rows at the edges of its selection (``fill_edge_rows``), with K1's
-   and K3's resident blocks per SM; then what the main path's shapes do
-   not take: K1's second body (keys in device scratch) and K3 on a
-   layout that stresses its one body (``window_sum_stress_case``);
+   plan (one band), K4 with the ground solve's two coefficient rows
+   (R = 2) and with one (R = 1) — (K1, K2 and K4 bitwise; K3 bitwise on
+   integer-valued sums and, on real values, within the f32 summation
+   bound of the exact sum), each timed on the device with CUDA events
+   (``cuda_ms``) beside its plain version, its bound and the one PyTorch
+   call that computes the same function where there is one
+   (``torch.quantile`` on an unfold view for K2, ``index_add_`` for K3,
+   ``index_select`` for K4), with the launch floor (a one-element
+   ``zero_``) beside K2's and K4's bounds, K2 at four block sizes and K4
+   also as the two R = 1 launches one matvec took before; K1 on rows at
+   the edges of its selection (``fill_edge_rows``), K2 on tied, -0/+0
+   and NaN rows (``median_edge_rows``), K4 on every lane kind and in its
+   scalar body (``gather_lane_case``), with each kernel's resident
+   blocks per SM; then what the main path's shapes do not take: K1's
+   second body (keys in device scratch), K2's (window 20 000) and K3 on
+   a layout that stresses its one body (``window_sum_stress_case``);
 4. small-shape chain: the BENCH_SMALL observation through the port on
    the card and, with the same inputs, on the CPU (plain versions);
 5. full-width chain: F=19 feeds x B=4 bands x C=1024 channels x 10 CES
    scans of 13 500 samples, window 6000, a 480x480 field, offset length
    50 — one warm-up run, then one timed run with every kernel's launch
-   counter set to 0 just before it and read just after;
+   counter set to 0 just before it and read just after (K1 and K2 once
+   per scan batch of each feed: 95);
 6. profile: one more full-width run under ``torch.profiler`` for the
    device time per kernel (K1, K2 and K3 per launch and as a share of
    device time) and the device's busy share;
@@ -40,7 +47,8 @@ Phases, in order; any failure exits non-zero and no result is printed:
    products compared), then at full width: 4 observations x 19 feeds x
    135 700 samples (10 313 200 per band, 76 ground groups) on the
    480x480 field, all four bands, each with the K3 and K4 launch
-   counters set to 0 just before its solve and read just after; then one
+   counters set to 0 just before its solve and read just after (K4 once
+   per CG iteration: 100); then one
    more band under ``torch.profiler`` (K3 and K4 per launch and as a
    share of device time). Phase 3 holds K3 and K4 at this
    path's shapes against their plain versions, and K4 on every lane
@@ -92,6 +100,10 @@ F32_U = 2.0 ** -24
 # against the reference there (tests/test_torch_solve_band.py), the
 # converged ground solve's null-space-invariant products
 FIELD_ATOL = 5e-4
+# the longest window K2 serves: its bisection body's 128-output block
+# stages 128 + w - 1 i32 keys in the 232 448 bytes of shared memory an
+# H100 block may use
+K2_LONGEST_WINDOW = 57_985
 
 
 def log(*a):
@@ -355,17 +367,14 @@ def _k3_layouts(plan, dev):
     }
 
 
-def check_gather_lanes(dev):
-    """K4 on every lane kind against its plain version, bitwise: a
-    three-row source, ids below and at the end of their window and >= S,
-    a chunk of sentinel ids, and window starts clipped at 0 and at S."""
-    import torch
-
-    from comapreduce_tpu_torch.mapmaking.cuda_binning import (
-        windowed_gather, windowed_gather_plain)
-
-    rng = np.random.default_rng(12)
-    R, S, chunk, n_chunks = 3, 5000, 256, 24
+def gather_lane_case(R: int, chunk: int = 256, seed: int = 12):
+    """A K4 case with every lane kind (numpy): an R-row source over
+    S = 5000, 24 chunks of sorted ids, ids below and at the end of their
+    window and >= S, a chunk of sentinel ids, and window starts clipped at
+    0 and at S. Returns ``(src, ids, base, window, chunk)``; a ``chunk``
+    that is not a multiple of 4 takes the kernel's scalar body."""
+    rng = np.random.default_rng(seed)
+    S, n_chunks = 5000, 24
     ids = np.sort(rng.integers(0, S, chunk * n_chunks))
     blocks = ids.reshape(n_chunks, chunk)
     base = blocks[:, 0].copy()
@@ -376,17 +385,66 @@ def check_gather_lanes(dev):
     ids[-chunk:] = S + 3                  # a sentinel chunk ...
     base[-1] = S + 3                      # ... whose start clips to S
     base[2] = -7                          # clips to 0
-    src = torch.as_tensor(rng.normal(size=(R, S)).astype(np.float32),
-                          device=dev)
-    it = torch.as_tensor(ids, dtype=torch.int32, device=dev)
-    bt = torch.as_tensor(base, dtype=torch.int32, device=dev)
-    got = windowed_gather(src, it, bt, window, chunk)
-    want = windowed_gather_plain(src, it, bt, window, chunk)
-    torch.cuda.synchronize()
-    if (not bits_equal(got, want) or bool(got[:, -chunk:].any())
-            or bool(got[:, [3, chunk, chunk + 5]].any())):
-        raise SystemExit("K4 windowed_gather disagrees with its plain "
-                         "version on the lane-kind case")
+    src = rng.normal(size=(R, S)).astype(np.float32)
+    return src, ids, base, window, chunk
+
+
+def median_edge_rows(P: int, window: int, seed: int = 29):
+    """K2 rows at the edges of its selection (numpy, name -> f32[4, P]):
+    ``tied``, values drawn from 5 levels; ``block_median``, medians of
+    12 such values (levels and midpoints, heavily tied) padded
+    symmetrically by the window as ``median_filter`` pads its block
+    series; ``signed_zero_nan``, -0.0 and +0.0 mixed (middles of both
+    signs, and windows of zeros only) with ±1 beside them, and NaNs of
+    both signs, the sentinel-colliding NaN pattern and a run of NaNs, so
+    that some windows hold a NaN and the others none."""
+    rng = np.random.default_rng(seed)
+    rows = 4
+    levels = np.array([-2.5, -1.0, 0.0, 1.0, 3.5], np.float32)
+    tied = rng.choice(levels, size=(rows, P))
+    n_core = P - window + 1
+    core = np.median(rng.choice(levels, size=(rows, n_core, 12)),
+                     axis=-1).astype(np.float32)
+    lo = window // 2
+    block = np.pad(core, ((0, 0), (lo, window - 1 - lo)), mode="symmetric")
+    zeros = np.where(rng.random((rows, P)) < 0.5, np.float32(-0.0),
+                     np.float32(0.0)).astype(np.float32)
+    zeros[2:, ::5] = rng.choice(np.array([-1.0, 1.0], np.float32),
+                                size=(rows - 2, len(range(0, P, 5))))
+    bits = zeros.view(np.int32)
+    bits[0, P // 2] = 0x7FC00000                 # +NaN
+    bits[1, 3:8] = np.int32(-0x400000)           # a run of -NaN
+    bits[2, P - 7] = 0x7FFFFFFF                  # the sentinel's pattern
+    return {"tied": tied, "block_median": block, "signed_zero_nan": zeros}
+
+
+def check_gather_lanes(dev):
+    """K4 on every lane kind against its plain version, bitwise: two and
+    three source rows in the four-element body, and the scalar body on a
+    chunk that is not a multiple of 4 and on ids that are not 16-byte
+    aligned."""
+    import torch
+
+    from comapreduce_tpu_torch.mapmaking.cuda_binning import (
+        windowed_gather, windowed_gather_plain)
+
+    for R, chunk, shift in ((2, 256, 0), (3, 256, 0), (2, 255, 0),
+                            (2, 256, 1)):
+        src, ids, base, window, chunk = gather_lane_case(R, chunk)
+        s = torch.as_tensor(src, device=dev)
+        # shift: ids start one word into their buffer (not 16-byte aligned)
+        buf = torch.zeros(ids.size + shift, dtype=torch.int32, device=dev)
+        buf[shift:] = torch.as_tensor(ids, dtype=torch.int32)
+        it = buf[shift:]
+        bt = torch.as_tensor(base, dtype=torch.int32, device=dev)
+        got = windowed_gather(s, it, bt, window, chunk)
+        want = windowed_gather_plain(s, it, bt, window, chunk)
+        torch.cuda.synchronize()
+        if (not bits_equal(got, want) or bool(got[:, -chunk:].any())
+                or bool(got[:, [3, chunk, chunk + 5]].any())):
+            raise SystemExit(f"K4 windowed_gather disagrees with its plain "
+                             f"version on the lane-kind case (R={R}, "
+                             f"chunk={chunk}, ids offset {shift})")
 
 
 def phase_kernel_parity(plan, full, field_plan):
@@ -394,11 +452,12 @@ def phase_kernel_parity(plan, full, field_plan):
 
     from comapreduce_tpu_torch.mapmaking.cuda_binning import (
         _window_dest, binned_window_sum, binned_window_sum_occupancy,
-        binned_window_sum_plain, windowed_gather, windowed_gather_plain)
+        binned_window_sum_plain, windowed_gather, windowed_gather_occupancy,
+        windowed_gather_plain)
     from comapreduce_tpu_torch.ops.cuda_median import (
-        fill_row_on_chip, masked_fill, masked_fill_occupancy,
-        masked_fill_plain, rolling_median_windows,
-        rolling_median_windows_plain)
+        RM_OUT, fill_row_on_chip, masked_fill, masked_fill_occupancy,
+        masked_fill_plain, rolling_median_occupancy, rolling_median_sorts,
+        rolling_median_windows, rolling_median_windows_plain)
     from comapreduce_tpu_torch.ops.reduce import scan_starts_lengths
 
     dev = torch.device("cuda")
@@ -409,6 +468,12 @@ def phase_kernel_parity(plan, full, field_plan):
         [(0, full.scan_samples)] * full.n_scans)
     rows = full.scan_batch * B * C
     entries = {}
+    # the launch floor: the device time of the smallest launch PyTorch
+    # makes (a one-element zero_), against which K2's and K4's bounds,
+    # far below any launch, are read
+    one = torch.empty(1, device=dev)
+    floor_ms = cuda_ms(lambda: one.zero_(), reps=50)
+    log(f"launch floor {floor_ms:.6f} ms")
 
     # K1 at the scan-batch block: (2 scans x 4 bands x 1024 channels) rows
     # of L = 13568, counts ~4.5e7, the scan's padded tail masked out and
@@ -466,13 +531,32 @@ def phase_kernel_parity(plan, full, field_plan):
     if not bits_equal(got, want):
         raise SystemExit("K2 rolling_median_windows disagrees with its "
                          "plain version")
+    # the same at the edges of its selection (ties, -0/+0 middles, NaN
+    # windows), and the second body on windows too long to sort in shared
+    # memory up to the longest it serves, bitwise
+    for name, xe in median_edge_rows(P, wb).items():
+        xe = torch.as_tensor(xe, device=dev)
+        if not bits_equal(rolling_median_windows(xe, wb),
+                          rolling_median_windows_plain(xe, wb)):
+            raise SystemExit(f"K2 rolling_median_windows disagrees with its "
+                             f"plain version on the {name} rows")
+    for w_long in (20_000, K2_LONGEST_WINDOW):
+        if rolling_median_sorts(w_long):
+            raise SystemExit(f"K2 at window {w_long} would take its sorted "
+                             "body")
+        x_long = torch.randn((2, w_long + 299), generator=g, device=dev)
+        if not bits_equal(rolling_median_windows(x_long, w_long),
+                          rolling_median_windows_plain(x_long, w_long)):
+            raise SystemExit(f"K2's second body at window {w_long} "
+                             "disagrees with its plain version")
+    del x_long
     T2 = P - wb + 1
     k_ms = cuda_ms(lambda: rolling_median_windows(x, wb), reps=20)
     p_ms = cuda_ms(lambda: rolling_median_windows_plain(x, wb), reps=3,
                    warm=1)
     # an exact median per output needs at most one linear selection over
-    # its window (wb compares); the kernel's 34 bisection-style passes
-    # are its own cost, not the function's
+    # its window (wb compares); the kernel's sort and walks are its own
+    # cost, not the function's
     b_ms, by = bound((x.numel() + got.numel()) * 4, x.shape[0] * T2 * wb)
     # the one PyTorch call computing the same function: the 0.5 quantile
     # of each window (linear interpolation: the midpoint of the two
@@ -485,9 +569,13 @@ def phase_kernel_parity(plan, full, field_plan):
         shape=[x.shape[0], P, wb], max_abs_err=float(
             (got - want).nan_to_num().abs().max()),
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+        launch_floor_ms=floor_ms,
         library_ms=cuda_ms(lambda: torch.quantile(
             x.unfold(-1, wb, 1), 0.5, dim=-1), reps=20),
-        library_max_abs_err=float((lib - got).abs().max()))
+        library_max_abs_err=float((lib - got).abs().max()),
+        outputs_per_block=RM_OUT,
+        sorted_body=rolling_median_sorts(wb),
+        blocks_per_sm=rolling_median_occupancy(wb))
     del lib
 
     # K3 at its three call sites on each full-width path: the flagship
@@ -533,44 +621,63 @@ def phase_kernel_parity(plan, full, field_plan):
      entries["binned_window_sum"]["elements_per_block"]) = \
         binned_window_sum_occupancy()
     # K4 at its one call site, the ground solve's offset-order gather of
-    # a per-offset coefficient (R = 1, S = n_off, M = P_pad) on the full
-    # field plan
+    # its two per-offset coefficient rows c0, c1 in one launch (R = 2,
+    # S = n_off, M = P_pad) on the full field plan; beside it one row
+    # (R = 1) and the parent's form of one matvec, two R = 1 launches
     fdv = field_plan.device(dev)
     perm_off = fdv["pair_perm_off"].to(torch.int64)
     ids = fdv["pair_offset"][perm_off]
     base = fdv["off_base"]
     window, chunk = field_plan.off_window, field_plan.pair_chunk
     S, M = field_plan.n_offsets, int(ids.shape[0])
-    src = torch.randn((S,), generator=g, device=dev)
-    got = windowed_gather(src, ids, base, window, chunk)
-    want = windowed_gather_plain(src, ids, base, window, chunk)
-    torch.cuda.synchronize()
-    if not bits_equal(got, want):
-        raise SystemExit("K4 windowed_gather disagrees with its plain "
-                         "version at the field path's shape")
+    src = torch.randn((2, S), generator=g, device=dev)
+    c0, c1 = src[0], src[1]
+    errs = {}
+    for R, s_r in ((1, c0), (2, src)):
+        got = windowed_gather(s_r, ids, base, window, chunk)
+        want = windowed_gather_plain(s_r, ids, base, window, chunk)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise SystemExit(f"K4 windowed_gather disagrees with its plain "
+                             f"version at the field path's shape, R={R}")
+        errs[R] = float((got - want).abs().max())
     check_gather_lanes(dev)
     # the one PyTorch call computing the same function: index_select on
     # the source padded with a zero slot, ids pre-mapped to that slot
     dest = _window_dest(ids, base, window, chunk, S)
     keep = dest < S
-    padded = torch.cat([src, torch.zeros(1, device=dev)])
+    padded = torch.cat([src, torch.zeros((2, 1), device=dev)], dim=1)
+    padded0 = padded[0].contiguous()
     n_read = int(torch.unique(dest[keep]).numel())
-    b_ms, by = bound(4 * (M + M // chunk + M + n_read), 3 * M)
+
+    def gather_bound(R):
+        return bound(4 * (M + M // chunk + R * M + R * n_read), 3 * M)
+
+    b_ms, by = gather_bound(2)
     entries["windowed_gather"] = dict(
         name="windowed_gather", route="cuda",
         source="comapreduce_tpu_torch/csrc/windowed_gather.cu",
         replaces="comapreduce_tpu/mapmaking/pallas_binning.py:285",
-        shape=[1, S, M, window, chunk],
-        max_abs_err=float((got - want).abs().max()),
+        shape=[2, S, M, window, chunk], max_abs_err=max(errs.values()),
         ms=cuda_ms(lambda: windowed_gather(src, ids, base, window, chunk),
                    reps=50),
         plain_ms=cuda_ms(lambda: windowed_gather_plain(src, ids, base,
                                                        window, chunk),
                          reps=20),
-        bound_ms=b_ms, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.index_select(padded, 0, dest),
+        bound_ms=b_ms, bound_by=by, launch_floor_ms=floor_ms,
+        library_ms=cuda_ms(lambda: torch.index_select(padded, 1, dest),
                            reps=50),
-        in_window_lanes=int(keep.sum()))
+        r1=dict(ms=cuda_ms(lambda: windowed_gather(c0, ids, base, window,
+                                                   chunk), reps=50),
+                bound_ms=gather_bound(1)[0],
+                library_ms=cuda_ms(lambda: torch.index_select(
+                    padded0, 0, dest), reps=50)),
+        r1_pair_ms=cuda_ms(lambda: (
+            windowed_gather(c0, ids, base, window, chunk),
+            windowed_gather(c1, ids, base, window, chunk)), reps=50),
+        in_window_lanes=int(keep.sum()),
+        blocks_per_sm=windowed_gather_occupancy(True),
+        scalar_blocks_per_sm=windowed_gather_occupancy(False))
     for k, v in entries.items():
         log("parity", k, json.dumps(v))
     return entries
@@ -701,6 +808,12 @@ def phase_full_chain(full, plan):
     for k, n in launches.items():
         if n <= 0:
             raise SystemExit(f"full chain never launched kernel {k}")
+    # K1 and K2 run once per scan batch of each feed
+    per_feed = -(-full.n_scans // full.scan_batch)
+    for k in ("masked_fill", "rolling_median_windows"):
+        if launches[k] != full.n_feeds * per_feed:
+            raise SystemExit(f"full chain launched {k} {launches[k]} times, "
+                             f"not {full.n_feeds * per_feed}")
     for name in ("destriped_map", "naive_map", "weight_map", "hit_map",
                  "offsets"):
         if not bool(torch.isfinite(getattr(res, name)).all()):
@@ -910,6 +1023,12 @@ def phase_field(geo, plan, stage_log):
             if n <= 0:
                 raise SystemExit(f"field band {band} never launched {k}")
             total[k] += n
+        re_solved = any("re-solving" in w for w in stage_log.warnings)
+        # K4: one launch (both coefficient rows) per CG iteration
+        if not re_solved and launches["windowed_gather"] != int(res.n_iter):
+            raise SystemExit(f"field band {band} launched windowed_gather "
+                             f"{launches['windowed_gather']} times in "
+                             f"{int(res.n_iter)} CG iterations")
         for name in ("offsets", "ground", "destriped_map", "naive_map",
                      "weight_map", "hit_map"):
             if not bool(torch.isfinite(getattr(res, name)).all()):
@@ -937,8 +1056,7 @@ def phase_field(geo, plan, stage_log):
                 "cg_iters": int(res.n_iter),
                 "residual": float(res.residual),
                 "diverged": int(res.diverged),
-                "re_solved": any("re-solving" in w
-                                 for w in stage_log.warnings),
+                "re_solved": re_solved,
                 "slope_err_max": float(np.abs(err).max()),
                 "slope_err_rms": float(np.sqrt(np.mean(err ** 2))),
                 "slope_raw_err_max": float(np.abs(raw).max()),

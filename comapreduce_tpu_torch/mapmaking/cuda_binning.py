@@ -25,12 +25,17 @@ gate (``pallas_binning_ok``) has no counterpart here.
 ``windowed_gather_pallas`` (``pallas_binning.py:285``, body
 ``_gather_kernel`` ``:263``), the offset-order coefficient gather of the
 ground-template solve. Bound: bytes — ids M i32 read once, out R x M f32
-written once, at most R x M f32 of the source read. Design: one thread
-per output element tests its own chunk window and copies one source
-word (no arithmetic), so it is bitwise equal to the plain version.
-Out-of-window and ``>= S`` ids read 0.0, where ``take(src, clip(ids))``
-would read a clamped element: every caller multiplies those lanes by a
-zero pair aggregate.
+written once, the distinct source words read once. Design: a thread
+takes four consecutive elements (one 16-byte ids load, its chunk's
+window start found with 32-bit math), tests their windows and writes
+every row of the source from that one read of ids, one 16-byte store
+per row — the ground solve gathers its two coefficient rows ``c0``,
+``c1`` in one launch. A chunk that is not a multiple of 4, or ids not
+16-byte aligned, takes the scalar body (one element per thread), chosen
+by shape. The kernel copies (no arithmetic), so it is bitwise equal to
+the plain version. Out-of-window and ``>= S`` ids read 0.0, where
+``take(src, clip(ids))`` would read a clamped element: every caller
+multiplies those lanes by a zero pair aggregate.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from comapreduce_tpu_torch import _build
 
 __all__ = ["binned_window_sum", "binned_window_sum_plain",
            "binned_window_sum_occupancy", "windowed_gather",
-           "windowed_gather_plain"]
+           "windowed_gather_occupancy", "windowed_gather_plain"]
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -169,26 +174,41 @@ def windowed_gather(src: torch.Tensor, ids: torch.Tensor,
         raise TypeError("windowed_gather kernel takes a float32 source")
     M = ids.shape[-1]
     _check_layout(ids, base, chunk, M)
+    if M > 2 ** 31 - 1:
+        raise ValueError(f"windowed_gather kernel takes fewer than 2**31 "
+                         f"elements, got {M}")
     S = src.shape[-1]
     lead = src.shape[:-1]
     s2 = src.contiguous().reshape(-1, S)
     R = s2.shape[0]
-    if R > 65535:
-        raise ValueError(f"windowed_gather kernel takes at most 65535 "
-                         f"rows, got {R}")
     out = torch.empty((R, M), dtype=torch.float32, device=src.device)
     if M == 0 or R == 0:
         return out.reshape(lead + (M,))
     i32 = ids.to(torch.int32).contiguous()
     b32 = base.to(torch.int32).contiguous()
+    # four elements per thread: 16-byte loads of ids, 16-byte stores
+    vec = chunk % 4 == 0 and i32.data_ptr() % 16 == 0
     fn = _build.c_function("windowed_gather", "cr_windowed_gather",
-                           [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _VP])
+                           [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I,
+                            _VP])
     windowed_gather.launches += 1
     _build.check(fn(s2.data_ptr(), i32.data_ptr(), b32.data_ptr(),
                     out.data_ptr(), M, R, S, int(window), int(chunk),
-                    torch.cuda.current_stream().cuda_stream),
+                    int(vec), torch.cuda.current_stream().cuda_stream),
                  "windowed_gather")
     return out.reshape(lead + (M,))
 
 
 windowed_gather.launches = 0
+
+
+def windowed_gather_occupancy(vec: bool = True) -> int:
+    """Resident K4 blocks (256 threads) per SM of the four-element body
+    (``vec``) or the scalar one on the current card, as the CUDA occupancy
+    API gives them."""
+    fn = _build.c_function("windowed_gather", "cr_windowed_gather_occupancy",
+                           [_I])
+    n = fn(int(vec))
+    if n < 0:
+        _build.check(-n, "windowed_gather occupancy")
+    return n

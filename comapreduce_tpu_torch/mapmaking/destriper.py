@@ -600,12 +600,15 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
 
         def matvec_g(x):
             a_, g = x
-            c0 = a_ + g[:, 0][grp_off]
-            c1 = g[:, 1][grp_off]
-            q_rank = pair_w * gather_a(c0) + paz * gather_a(c1)
+            # c0 = a + g0[grp], c1 = g1[grp] written as the two rows of
+            # one source, so each gather below is one launch for both
+            c = torch.empty((2, n_off), dtype=dt, device=dev)
+            torch.add(a_, g[:, 0][grp_off], out=c[0])
+            torch.index_select(g[:, 1], 0, grp_off, out=c[1])
+            ga = gather_a(c)
+            q_rank = pair_w * ga[0] + paz * ga[1]
             gm = gather_m(to_map(q_rank))
-            g0 = c_gather(c0)
-            g1 = c_gather(c1)
+            g0, g1 = c_gather(c)
             off_f = off_sum(pair_w_off * g0 + paz_off * g1
                             - pair_w_off * gm)
             off_az = off_sum(paz_off * g0 + pazaz_off * g1 - paz_off * gm)

@@ -24,10 +24,15 @@ K2 ``rolling_median_windows`` (``csrc/rolling_median.cu``) replaces
 ``_kernel`` ``:99``). Bound: at the main-path shape (8 rows x 2130
 samples, window 500) the bytes are ~120 KB and an exact median needs at
 most one linear selection (window compares) per output, so a launch is
-bounded by its latency. Design: a block stages one overlapping row
-segment as i32 keys in shared memory and each thread bisects its own
-output's window there — 34 passes over the window, ~34x the selection
-work of the bound.
+bounded by its latency. Design: a block of :data:`RM_OUT` outputs sorts
+its overlapping row segment once, as (key, position) pairs in shared
+memory (bitonic), and each thread walks the sorted segment counting the
+entries inside its own window up to its two middle order statistics;
+one binary search over the sorted NaN tail tells whether its window
+holds a NaN. Segments too long to sort in shared memory take the second
+body, chosen by shape (:func:`rolling_median_sorts`): each thread of a
+128-output block bisects its own window's value range, for every window
+whose segment of keys fits a block's shared memory.
 """
 
 from __future__ import annotations
@@ -41,12 +46,20 @@ from comapreduce_tpu_torch.ops.stats import (_median_mid, f32_key, key_f32,
                                             masked_median)
 
 __all__ = ["fill_row_on_chip", "masked_fill", "masked_fill_occupancy",
-           "masked_fill_plain", "rolling_median_windows",
+           "masked_fill_plain", "rolling_median_occupancy",
+           "rolling_median_sorts", "rolling_median_windows",
            "rolling_median_windows_plain"]
 
 # shared memory a K1 block may give its row (of the 227 KB an H100 block
 # can use); longer rows take the second body, keys in device scratch
 FILL_SMEM_BUDGET = 200 * 1024
+
+# K2: the sorted body's outputs (threads) per block, as RM_OUT in
+# ``csrc/rolling_median.cu`` (chosen there), and the shared memory its
+# (key, position) pairs may use (8 bytes each, padded to a power of two);
+# longer segments take the bisection body
+RM_OUT = 256
+RM_SORT_SMEM = 128 * 1024
 
 # outputs per step of K2's plain version (bounds its rows x chunk x window
 # working matrix)
@@ -181,11 +194,32 @@ def rolling_median_windows(padded: torch.Tensor,
     if rows == 0:
         return out.reshape(padded.shape[:-1] + (T,))
     fn = _build.c_function("rolling_median", "cr_rolling_median",
-                           [_VP, _VP, _LL, _LL, _I, _VP])
+                           [_VP, _VP, _LL, _LL, _I, _I, _VP])
     rolling_median_windows.launches += 1
     _build.check(fn(x.data_ptr(), out.data_ptr(), rows, P, int(window),
-                    _stream()), "rolling_median_windows")
+                    int(rolling_median_sorts(window)), _stream()),
+                 "rolling_median_windows")
     return out.reshape(padded.shape[:-1] + (T,))
 
 
 rolling_median_windows.launches = 0
+
+
+def rolling_median_sorts(window: int) -> bool:
+    """Whether K2 takes its sorted body for ``window``: a block's
+    ``RM_OUT + window - 1`` (key, position) pairs, 8 bytes each and
+    padded to a power of two, fit :data:`RM_SORT_SMEM`. Longer windows
+    take the bisection body."""
+    n = RM_OUT + window - 1
+    return 8 * (1 << max(n - 1, 0).bit_length()) <= RM_SORT_SMEM
+
+
+def rolling_median_occupancy(window: int) -> int:
+    """Resident K2 blocks per SM for ``window`` on the current card, as the
+    CUDA occupancy API gives them."""
+    fn = _build.c_function("rolling_median", "cr_rolling_median_occupancy",
+                           [_I, _I])
+    n = fn(int(window), int(rolling_median_sorts(window)))
+    if n < 0:
+        _build.check(-n, "rolling_median occupancy")
+    return n

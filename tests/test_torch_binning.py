@@ -1,7 +1,8 @@
 """``mapmaking/binning.py`` of the port against the reference's on the same
 numpy inputs: a raster pointing with invalid samples (negative ids and
 ids past ``npix``), zero and positive weights, dense and compacted pixel
-spaces.
+spaces; and K4's plain version on a two-row source (the ground solve's
+fused ``(c0, c1)`` gather) against ``windowed_gather_pallas``.
 
 Tolerances: sums of integer-valued inputs (hits, integer weights) are
 exact in f32 in any order, so they are held bitwise, and so are gathers;
@@ -14,9 +15,12 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from chip_smoke import gather_lane_case
 from comapreduce_tpu.mapmaking import binning as ref
+from comapreduce_tpu.mapmaking.pallas_binning import windowed_gather_pallas
 from comapreduce_tpu.mapmaking.pixel_space import PixelSpace as RefSpace
 from comapreduce_tpu_torch.mapmaking import binning as port
+from comapreduce_tpu_torch.mapmaking.cuda_binning import windowed_gather
 from comapreduce_tpu_torch.mapmaking.pixel_space import PixelSpace
 
 SCALE_RTOL = 1e-6
@@ -112,3 +116,23 @@ def test_naive_map(compact):
     _close(got[1], want[1])
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     assert got[0].shape[-1] == (n_p.n_solve if compact else npix)
+
+
+# K4 with the ground solve's two coefficient rows as one (2, S) source,
+# on every lane kind (chip_smoke.py's case), chunks of 256 and 128
+@pytest.mark.parametrize("chunk", [256, 128])
+def test_windowed_gather_two_rows_matches_pallas(chunk):
+    src, ids, base, window, chunk = gather_lane_case(2, chunk)
+    got = windowed_gather(torch.as_tensor(src), torch.as_tensor(ids),
+                          torch.as_tensor(base), window, chunk).numpy()
+    want = np.asarray(windowed_gather_pallas(
+        jnp.asarray(src), jnp.asarray(ids, jnp.int32),
+        jnp.asarray(base, jnp.int32), window, chunk, interpret=True))
+    assert got.shape == want.shape == (2, ids.size)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    for r in range(2):
+        np.testing.assert_array_equal(
+            got[r], windowed_gather(torch.as_tensor(src[r]),
+                                    torch.as_tensor(ids),
+                                    torch.as_tensor(base), window,
+                                    chunk).numpy())

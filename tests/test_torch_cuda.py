@@ -1,10 +1,13 @@
 """The port's CUDA kernels on the card: K1 (masked fill) in its second
 body (rows too long to keep on chip, which the main path's shapes never
 take: keys in device scratch) and on rows at the edges of its
-selection, K3 (binned window sum) on a layout that stresses its one body,
-and K4 (windowed gather) on every lane kind (in-window, out-of-window,
-sentinel ids >= S, clipped window starts), each against its plain
-version. The edge rows and the stress layout are ``chip_smoke.py``'s.
+selection, K2 (rolling median) at the main path's shape, at the edges of
+its selection, on odd and even windows and in its second body, K3
+(binned window sum) on a layout that stresses its one body, and K4
+(windowed gather) on every lane kind (in-window, out-of-window, sentinel
+ids >= S, clipped window starts) with two and three source rows and in
+its scalar body, each against its plain version. The edge rows, the
+stress layout and the lane-kind case are ``chip_smoke.py``'s.
 
 This file imports neither ``jax`` nor the JAX package, so it runs on a
 machine with a card and no JAX: ``python -m pytest tests/test_torch_cuda.py``.
@@ -13,24 +16,28 @@ Everywhere else every test skips with a reason.
 Tolerances: K1 is bitwise on rows that take the stride-4 median; a row
 that takes the masked-mean fallback sums ~75 000 samples in another
 order than ``torch.sum``, so it is held to rtol 1e-5 (f32 summation
-order at that length). K3's atomics add in a run-to-run order: bitwise on
-integer-valued sums (exact in f32 in any order) and, on real values,
-each bin within gamma(n-1) * sum|x| of its exact f64 sum, a bound that
-holds for every summation order (``chip_smoke.check_window_sum``). K4
-copies one source word per lane: bitwise.
+order at that length). K2 returns order statistics and their
+``_median_mid``: bitwise. K3's atomics add in a run-to-run order:
+bitwise on integer-valued sums (exact in f32 in any order) and, on real
+values, each bin within gamma(n-1) * sum|x| of its exact f64 sum, a
+bound that holds for every summation order
+(``chip_smoke.check_window_sum``). K4 copies one source word per lane:
+bitwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import fill_edge_rows, window_sum_stress_case
+from chip_smoke import (K2_LONGEST_WINDOW, fill_edge_rows, gather_lane_case,
+                        median_edge_rows, window_sum_stress_case)
 from comapreduce_tpu_torch.mapmaking.cuda_binning import (
     binned_window_sum, binned_window_sum_plain, windowed_gather,
     windowed_gather_plain)
-from comapreduce_tpu_torch.ops.cuda_median import (fill_row_on_chip,
-                                                   masked_fill,
-                                                   masked_fill_plain)
+from comapreduce_tpu_torch.ops.cuda_median import (
+    RM_OUT, fill_row_on_chip, masked_fill, masked_fill_plain,
+    rolling_median_sorts, rolling_median_windows,
+    rolling_median_windows_plain)
 
 F32_U = 2.0 ** -24
 
@@ -119,21 +126,11 @@ def test_cuda_window_sum_stress_case(cuda_device):
     assert bool(((got - exact).abs() <= ku / (1 - ku) * abs_sum).all())
 
 
+# R = 2 is the ground solve's fused (c0, c1) gather
 @pytest.mark.cuda
-def test_cuda_windowed_gather_every_lane_kind(cuda_device):
-    rng = np.random.default_rng(12)
-    R, S, chunk, n_chunks = 3, 5000, 256, 24
-    ids = np.sort(rng.integers(0, S, chunk * n_chunks))
-    blocks = ids.reshape(n_chunks, chunk)
-    base = blocks[:, 0].copy()
-    window = -(-int((blocks[:, -1] - base + 1).max()) // 128) * 128
-    ids[3] = S + 1                        # >= S
-    base[1] += 1                          # ids[chunk] below its window
-    ids[chunk + 5] = base[1] + window     # at its window's end
-    ids[-chunk:] = S + 3                  # a sentinel chunk ...
-    base[-1] = S + 3                      # ... whose start clips to S
-    base[2] = -7                          # clips to 0
-    src = rng.normal(size=(R, S)).astype(np.float32)
+@pytest.mark.parametrize("R", [2, 3])
+def test_cuda_windowed_gather_every_lane_kind(cuda_device, R):
+    src, ids, base, window, chunk = gather_lane_case(R)
     s = torch.as_tensor(src, device=cuda_device)
     it = torch.as_tensor(ids, dtype=torch.int32, device=cuda_device)
     bt = torch.as_tensor(base, dtype=torch.int32, device=cuda_device)
@@ -146,3 +143,76 @@ def test_cuda_windowed_gather_every_lane_kind(cuda_device):
                                   want.numpy().view(np.int32))
     assert not got[:, -chunk:].any()
     assert not got[:, [3, chunk, chunk + 5]].any()
+
+
+# the scalar body: a chunk that is not a multiple of 4, and ids that
+# start one word into their buffer (not 16-byte aligned)
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,shift", [(255, 0), (256, 1)])
+def test_cuda_windowed_gather_scalar_body(cuda_device, chunk, shift):
+    src, ids, base, window, chunk = gather_lane_case(2, chunk)
+    s = torch.as_tensor(src, device=cuda_device)
+    buf = torch.zeros(ids.size + shift, dtype=torch.int32, device=cuda_device)
+    buf[shift:] = torch.as_tensor(ids, dtype=torch.int32)
+    it = buf[shift:]
+    bt = torch.as_tensor(base, dtype=torch.int32, device=cuda_device)
+    before = windowed_gather.launches
+    got = windowed_gather(s, it, bt, window, chunk)
+    torch.cuda.synchronize()
+    assert windowed_gather.launches == before + 1
+    want = windowed_gather_plain(s.cpu(), it.cpu(), bt.cpu(), window, chunk)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
+
+
+def _median_bitwise(x, w):
+    before = rolling_median_windows.launches
+    got = rolling_median_windows(x, w).cpu().numpy()
+    assert rolling_median_windows.launches == before + 1
+    want = rolling_median_windows_plain(x.cpu(), w).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    return got
+
+
+# the main path's shape: 2 scans x 4 bands of the block-median series,
+# window 500 (T = 1631 outputs, not a multiple of RM_OUT)
+@pytest.mark.cuda
+def test_cuda_rolling_median_main_shape(cuda_device):
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(8, 2130)).astype(np.float32),
+                        device=cuda_device)
+    assert rolling_median_sorts(500)
+    _median_bitwise(x, 500)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tied", "block_median", "signed_zero_nan"])
+def test_cuda_rolling_median_edge_rows(cuda_device, name):
+    x = median_edge_rows(2130, 500)[name]
+    got = _median_bitwise(torch.as_tensor(x, device=cuda_device), 500)
+    if name == "signed_zero_nan":
+        assert np.isnan(got[:3]).any() and not np.isnan(got[3]).any()
+        assert (np.signbit(got) & (got == 0)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2, 37, 500])
+def test_cuda_rolling_median_windows(cuda_device, w):
+    rng = np.random.default_rng(w)
+    P = 3 * RM_OUT + 17 + w - 1          # T = 3 RM_OUT + 17
+    x = rng.normal(size=(3, P)).astype(np.float32)
+    x[1, P // 2] = np.nan
+    _median_bitwise(torch.as_tensor(x, device=cuda_device), w)
+
+
+# windows whose sorted segment does not fit shared memory: the bisection
+# body, up to the longest window whose 128-output segment of keys fits
+# the 227 KB a block may use
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [20_000, K2_LONGEST_WINDOW])
+def test_cuda_rolling_median_second_body(cuda_device, w):
+    assert not rolling_median_sorts(w)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, w + 299)).astype(np.float32)
+    x[1, 100] = np.nan
+    _median_bitwise(torch.as_tensor(x, device=cuda_device), w)

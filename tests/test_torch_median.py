@@ -21,14 +21,16 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from chip_smoke import median_edge_rows
 from comapreduce_tpu.ops import median_filter as ref_mf
 from comapreduce_tpu.ops.pallas_median import (masked_fill_pallas,
                                                rolling_median_windows_pallas)
 from comapreduce_tpu.ops.reduce import _fill_bad_xla
 from comapreduce_tpu_torch.ops import median_filter as port_mf
 from comapreduce_tpu_torch.ops.cuda_median import (
-    FILL_SMEM_BUDGET, fill_row_on_chip, masked_fill, masked_fill_plain,
-    rolling_median_windows, rolling_median_windows_plain)
+    FILL_SMEM_BUDGET, RM_OUT, RM_SORT_SMEM, fill_row_on_chip, masked_fill,
+    masked_fill_plain, rolling_median_sorts, rolling_median_windows,
+    rolling_median_windows_plain)
 
 
 def _bits(a):
@@ -150,6 +152,20 @@ def test_rolling_windows_negative_tied_and_nan():
     _assert_bitwise(got[clean], _oracle(x, w)[clean])
 
 
+# chip_smoke.py's K2 edge rows (ties, -0/+0 middles, NaN windows of
+# both signs and of the sentinel's bit pattern), at an odd and an even
+# window
+@pytest.mark.parametrize("name", ["tied", "block_median", "signed_zero_nan"])
+@pytest.mark.parametrize("w", [101, 64])
+def test_rolling_windows_edge_rows_match_pallas(name, w):
+    x = median_edge_rows(700, w)[name]
+    got = rolling_median_windows(torch.as_tensor(x), w).numpy()
+    _assert_bitwise(got, np.asarray(rolling_median_windows_pallas(
+        jnp.asarray(x), w, chunk=128, interpret=True)))
+    if name == "signed_zero_nan":
+        assert np.isnan(got).any() and not np.isnan(got).all()
+
+
 @pytest.mark.parametrize("shape,w", [((8, 2130), 500), ((3, 700), 37),
                                      ((4, 640), 100)])
 def test_quantile_on_unfold_is_the_rolling_median(shape, w):
@@ -170,6 +186,19 @@ def test_quantile_on_unfold_is_the_rolling_median(shape, w):
     scale = float(np.nanmax(np.abs(x)))
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=float(np.spacing(np.float32(scale))))
+
+
+def test_rolling_median_sorts_within_budget():
+    """K2 sorts a block's ``RM_OUT + window - 1`` (key, position) pairs,
+    8 bytes each and padded to a power of two, while they fit
+    ``RM_SORT_SMEM`` — the main path's window 500 does; longer windows
+    take its bisection body."""
+    n_max = RM_SORT_SMEM // 8
+    assert rolling_median_sorts(500)
+    assert rolling_median_sorts(n_max - RM_OUT + 1)
+    assert not rolling_median_sorts(n_max - RM_OUT + 2)
+    assert not rolling_median_sorts(20_000)
+    assert rolling_median_sorts(1)
 
 
 def test_rolling_windows_rejects_short_rows():
