@@ -52,7 +52,22 @@ Phases, in order; any failure exits non-zero and no result is printed:
    more band under ``torch.profiler`` (K3 and K4 per launch and as a
    share of device time). Phase 3 holds K3 and K4 at this
    path's shapes against their plain versions, and K4 on every lane
-   kind.
+   kind; K3 also at R = 4 on the field plan (the joint four-band solve);
+8. the multigrid V-cycle, the banded noise prior and compensated CG
+   dots: at FIELD_SMALL, card against CPU, the ground + multigrid solve,
+   the banded + multigrid offsets-only solve on the matched-1/f variant
+   and a compensated solve, and ``precise_dot`` against a float64 dot at
+   the field's offset and sample counts; at full width, phase A — the
+   four bands through ``solve_band`` with the ground template and
+   ``fieldrun.MG_KW``, each with the K3 and K4 counters set to 0 just
+   before its solve and read just after (K4 once per CG iteration, K3 as
+   ``k3_launches`` derives), phase C — one more such band under
+   ``torch.profiler`` (K3, K4, ``index_add_``, ``index_select`` and the
+   coarsest ``einsum``, and the solve's busy share), and phase B — the
+   four matched-1/f bands offsets-only, band 0 through ``solve_band``
+   with the banded prior (its fallback warning must name the two planted
+   groups) and then all four as one multi-RHS ``destripe_planned`` with
+   ``stack_multigrid`` and ``stack_banded``, counters likewise.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -579,10 +594,12 @@ def phase_kernel_parity(plan, full, field_plan):
     del lib
 
     # K3 at its three call sites on each full-width path: the flagship
-    # plan with its 4 bands as right-hand sides, and the field plan one
-    # band at a time (R = 1; pair_sum there sums the band's 10.3M samples)
+    # plan with its 4 bands as right-hand sides, the field plan one band
+    # at a time (R = 1; pair_sum there sums the band's 10.3M samples) and
+    # the field plan's joint four-band solve (R = 4)
     sites = {}
-    for prefix, pl, R in (("", plan, B), ("field_", field_plan, 1)):
+    for prefix, pl, R in (("", plan, B), ("field_", field_plan, 1),
+                          ("field4_", field_plan, B)):
         for site, (ids, base, window, chunk, out_size, M) in _k3_layouts(
                 pl, dev).items():
             site = prefix + site
@@ -914,11 +931,39 @@ class StageLog(logging.Handler):
         return sum(t for name, t in self.stages if name == stage)
 
 
+def residual_trajectory(res) -> dict:
+    """The CG recurrence's relative residual ``sqrt(rr / |b|^2)`` of a
+    solve run with ``trace_iters``: at iterations 10, 25, 50, 75 and 100
+    and its least value (the reported residual is the last one)."""
+    rr, _, _, b_norm = res.trace
+    k = int(res.n_iter)
+    rel = (rr[:k] / b_norm.clamp(min=1e-30)).sqrt().cpu().numpy()
+    return {"at": {str(i): float(rel[i - 1]) for i in (10, 25, 50, 75, 100)
+                   if i <= k},
+            "min": float(rel.min()), "argmin": int(rel.argmin()) + 1}
+
+
 def _synced() -> float:
     import torch
 
     torch.cuda.synchronize()
     return time.perf_counter()
+
+
+def _field_checks(label, res, plan, npix):
+    """Finite products and hit coverage equal to the plan's n_rank;
+    returns the hit fraction."""
+    import torch
+
+    for name in ("offsets", "ground", "destriped_map", "naive_map",
+                 "weight_map", "hit_map"):
+        if not bool(torch.isfinite(getattr(res, name)).all()):
+            raise SystemExit(f"{label}: non-finite {name}")
+    n_hit = int((res.hit_map > 0).sum())
+    if n_hit != plan.n_rank:
+        raise SystemExit(f"{label}: {n_hit} hit pixels, the plan has "
+                         f"n_rank {plan.n_rank}")
+    return n_hit / npix
 
 
 def phase_small_field():
@@ -1016,7 +1061,7 @@ def phase_field(geo, plan, stage_log):
         for fn in counters.values():
             fn.launches = 0
         t1 = _synced()
-        res = solve_band(data, **SOLVE_KW)
+        res = solve_band(data, trace_iters=SOLVE_KW["n_iter"], **SOLVE_KW)
         wall = _synced() - t1
         launches = {k: fn.launches for k, fn in counters.items()}
         for k, n in launches.items():
@@ -1029,14 +1074,7 @@ def phase_field(geo, plan, stage_log):
             raise SystemExit(f"field band {band} launched windowed_gather "
                              f"{launches['windowed_gather']} times in "
                              f"{int(res.n_iter)} CG iterations")
-        for name in ("offsets", "ground", "destriped_map", "naive_map",
-                     "weight_map", "hit_map"):
-            if not bool(torch.isfinite(getattr(res, name)).all()):
-                raise SystemExit(f"field band {band}: non-finite {name}")
-        n_hit = int((res.hit_map > 0).sum())
-        if n_hit != plan.n_rank:
-            raise SystemExit(f"field band {band}: {n_hit} hit pixels, the "
-                             f"plan has n_rank {plan.n_rank}")
+        cover = _field_checks(f"field band {band}", res, plan, npix)
         err = slope_errors(res, truth, sh)
         raw = res.ground[:, 1].cpu().numpy() - truth["ground"][:, 1]
         orient = (np.arange(sh.n_groups) // sh.n_feeds) % 2
@@ -1057,12 +1095,13 @@ def phase_field(geo, plan, stage_log):
                 "residual": float(res.residual),
                 "diverged": int(res.diverged),
                 "re_solved": re_solved,
+                "residual_trajectory": residual_trajectory(res),
                 "slope_err_max": float(np.abs(err).max()),
                 "slope_err_rms": float(np.sqrt(np.mean(err ** 2))),
                 "slope_raw_err_max": float(np.abs(raw).max()),
                 "slope_orientation_shift": [float(raw[orient == o].mean())
                                             for o in (0, 1)],
-                "map_hit_fraction": n_hit / npix, "launches": launches,
+                "map_hit_fraction": cover, "launches": launches,
                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
         log("field_band", json.dumps(line))
         bands.append(line)
@@ -1108,6 +1147,395 @@ def phase_field_profile(data, stage_log, top: int = 12):
     return out
 
 
+def k3_launches(n_iter: int, ground: bool, nu: int = 1) -> int:
+    """K3 launches of one cold ``destripe_planned`` solve under the
+    multigrid V-cycle, from the code:
+
+    - set-up: ``pair_sum`` of the weights, the weighted TOD and the
+      sample counts, ``rank_sum`` of the pair weights, ``off_sum`` of the
+      diagonal, ``to_map`` of the weighted TOD, ``off_sum`` of the
+      right-hand side and of the Jacobi correction: 8; the ground solve
+      adds ``pair_sum`` of w az, w az^2 and w az d and ``off_sum`` of the
+      az right-hand side: 12;
+    - one V-cycle application: 2 nu fine matvecs (the residual after the
+      pre-smooth from zero, which takes none, nu - 1 more pre-smooths and
+      nu post-smooths), each a ``rank_sum`` and an ``off_sum``: 4 nu —
+      the coarser levels use ``index_add_``, not K3;
+    - the CG: one application before the loop, then per iteration one
+      matvec (offsets-only 2, the ground solve's joint matvec 3) and one
+      application;
+    - the products: ``to_map`` of the residual pairs and ``rank_sum`` of
+      the counts: 2.
+
+    So 14 + 6 k offsets-only and 18 + 7 k with the ground template at
+    nu = 1 (the two-level ground solve, without the V-cycle: 14 + 3 k)."""
+    setup = 12 if ground else 8
+    per_matvec = 3 if ground else 2
+    vc = 4 * nu
+    return setup + vc + n_iter * (per_matvec + vc) + 2
+
+
+def precise_dot_case(n: int, seed: int):
+    """Two f32 vectors of ``n`` normal values (numpy) and their float64
+    dot, which ``precise_dot`` is held to."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32)
+    y = rng.standard_normal(n).astype(np.float32)
+    return x, y, float(np.dot(x.astype(np.float64), y.astype(np.float64)))
+
+
+def phase_small_mg_banded():
+    """The new solver options at FIELD_SMALL on the card and on the CPU:
+    the ground + multigrid band solve (null-space-invariant products),
+    the banded + multigrid offsets-only solve on the matched-1/f variant
+    (mean-removed offsets and maps) and the ground + multigrid solve with
+    compensated CG dots, each converged, at FIELD_ATOL; then
+    ``precise_dot`` on the card against a float64 dot at the field's
+    offset count and sample count, and its time per call beside the f32
+    ``torch.dot``."""
+    import torch
+
+    from comapreduce_tpu_torch.cli.run_destriper import solve_band
+    from comapreduce_tpu_torch.fieldrun import (FIELD_FULL, FIELD_SMALL,
+                                                MG_KW, OFFSET_LENGTH,
+                                                field_geometry, invariants,
+                                                make_field_band,
+                                                make_field_band_1f)
+    from comapreduce_tpu_torch.ops.precision import precise_dot
+
+    sh = FIELD_SMALL
+    geo = field_geometry(sh)
+    ground_kw = dict(offset_length=OFFSET_LENGTH, use_ground=True,
+                     n_iter=100, threshold=1e-6, mg=MG_KW)
+    data, _ = make_field_band(sh, geo, 0)
+    data_1f, _, quality = make_field_band_1f(sh, geo, 0)
+    cases = {
+        "ground_mg": (data, ground_kw),
+        "banded_mg": (data_1f, dict(offset_length=OFFSET_LENGTH, n_iter=100,
+                                    threshold=1e-6, mg=MG_KW,
+                                    noise_weight={"bandwidth": 4},
+                                    quality=quality, band=0)),
+        "ground_mg_compensated": (data, dict(ground_kw, cg_dot="compensated")),
+    }
+    out = {}
+    for name, (d, kw) in cases.items():
+        res = {dev: solve_band(d, device=dev, **kw) for dev in ("cuda", "cpu")}
+        if kw.get("use_ground"):
+            inv = {dev: invariants(r, d, OFFSET_LENGTH)
+                   for dev, r in res.items()}
+        else:
+            inv = {}
+            for dev, r in res.items():
+                hit = r.hit_map.cpu().numpy() > 0
+                a = r.offsets.cpu().numpy()
+                m = r.destriped_map.cpu().numpy()[hit]
+                inv[dev] = {"offsets": a - a.mean(), "map": m - m.mean()}
+        diffs = {k: float(np.abs(inv["cuda"][k] - inv["cpu"][k]).max())
+                 for k in inv["cpu"]}
+        for k, dd in diffs.items():
+            if not dd <= FIELD_ATOL:
+                raise SystemExit(f"small {name} {k}: card vs CPU {dd} > "
+                                 f"{FIELD_ATOL}")
+        for dev, r in res.items():
+            if not (float(r.residual) < 1e-6 and int(r.diverged) == 0):
+                raise SystemExit(f"small {name} on {dev}: residual "
+                                 f"{float(r.residual)}, diverged "
+                                 f"{int(r.diverged)}")
+        if not torch.equal(res["cuda"].hit_map.cpu(), res["cpu"].hit_map):
+            raise SystemExit(f"small {name}: hit maps differ")
+        out[name] = {"max_diff": diffs,
+                     "cg_iters": {dv: int(r.n_iter) for dv, r in res.items()},
+                     "residual": {dv: float(r.residual)
+                                  for dv, r in res.items()}}
+    # precise_dot on the card: the f32 rounding of a sum kept to ~48 bits,
+    # so within u |exact| plus the float-float tree's own error, at most
+    # (depth + 2)^2 u^2 sum|x y| (Ogita, Rump and Oishi 2005, dot2)
+    dots = {}
+    n_samples = FIELD_FULL.n_groups * FIELD_FULL.stream_samples
+    for n in (n_samples // OFFSET_LENGTH, n_samples):
+        x, y, exact = precise_dot_case(n, seed=n % 1000)
+        xt = torch.as_tensor(x, device="cuda")
+        yt = torch.as_tensor(y, device="cuda")
+        got = float(precise_dot(xt, yt))
+        f32 = float(torch.dot(xt, yt))
+        abs_sum = float(np.dot(np.abs(x).astype(np.float64),
+                               np.abs(y).astype(np.float64)))
+        depth = int(np.ceil(np.log2(n)))
+        lim = F32_U * abs(exact) + (depth + 2) ** 2 * F32_U ** 2 * abs_sum
+        if not abs(got - exact) <= lim:
+            raise SystemExit(f"precise_dot at n={n}: {got} vs float64 "
+                             f"{exact}, off by {abs(got - exact)} > {lim}")
+        dots[str(n)] = {
+            "err": abs(got - exact), "limit": lim,
+            "f32_dot_err": abs(f32 - exact),
+            "ms": cuda_ms(lambda: precise_dot(xt, yt), reps=10),
+            "f32_dot_ms": cuda_ms(lambda: torch.dot(xt, yt), reps=20)}
+    out["precise_dot"] = dots
+    log("small_mg_banded", json.dumps(out))
+    return out
+
+
+def phase_field_mg(geo, plan, stage_log, twolevel_bands):
+    """Phase A: all four bands of the full field run through ``solve_band``
+    with the ground template and the multigrid V-cycle (``fieldrun.MG_KW``),
+    100 iterations, threshold 1e-6, each with the K3 and K4 counters set
+    to 0 just before its solve and read just after. Checks those of the
+    two-level field phase (finite products, hit coverage, slopes within
+    ``SLOPE_ATOL``, the plan from the memo), the multigrid patterns built
+    in band 0 only, K4 once per CG iteration and K3 as
+    :func:`k3_launches` derives. Reports each band's wall split into the
+    host stages and the solve, beside the two-level band's residual."""
+    import torch
+
+    from comapreduce_tpu_torch.cli.run_destriper import solve_band
+    from comapreduce_tpu_torch.fieldrun import (FIELD_FULL, MG_KW,
+                                                OFFSET_LENGTH, SLOPE_ATOL,
+                                                make_field_band,
+                                                slope_errors)
+    from comapreduce_tpu_torch.mapmaking.cuda_binning import (
+        binned_window_sum, windowed_gather)
+
+    sh = FIELD_FULL
+    kw = dict(offset_length=OFFSET_LENGTH, use_ground=True, n_iter=100,
+              threshold=1e-6, mg=MG_KW, trace_iters=100)
+    counters = {"binned_window_sum": binned_window_sum,
+                "windowed_gather": windowed_gather}
+    bands, total = [], {k: 0 for k in counters}
+    keep = None
+    for band in range(sh.n_bands):
+        t0 = time.perf_counter()
+        data, truth = make_field_band(sh, geo, band)
+        gen_s = time.perf_counter() - t0
+        if keep is None:
+            keep = data
+        stage_log.clear()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t1 = _synced()
+        res = solve_band(data, **kw)
+        wall = _synced() - t1
+        launches = {k: fn.launches for k, fn in counters.items()}
+        for k, n in launches.items():
+            if n <= 0:
+                raise SystemExit(f"mg field band {band} never launched {k}")
+            total[k] += n
+        k_it = int(res.n_iter)
+        re_solved = any("re-solving" in w for w in stage_log.warnings)
+        if not re_solved:
+            if launches["windowed_gather"] != k_it:
+                raise SystemExit(
+                    f"mg field band {band} launched windowed_gather "
+                    f"{launches['windowed_gather']} times in {k_it} CG "
+                    "iterations")
+            want = k3_launches(k_it, ground=True, nu=MG_KW["smooth"])
+            if launches["binned_window_sum"] != want:
+                raise SystemExit(f"mg field band {band} launched "
+                                 f"binned_window_sum "
+                                 f"{launches['binned_window_sum']} times, "
+                                 f"not {want}")
+        cover = _field_checks(f"mg field band {band}", res, plan,
+                              sh.nx * sh.ny)
+        err = slope_errors(res, truth, sh)
+        if not float(np.abs(err).max()) < SLOPE_ATOL:
+            raise SystemExit(f"mg field band {band}: az slope off the "
+                             f"injected one by {float(np.abs(err).max())}")
+        if stage_log.seconds("plan_build") > 0:
+            raise SystemExit(f"mg field band {band} rebuilt the pointing "
+                             "plan")
+        pat_s = stage_log.seconds("mg_patterns")
+        if (band == 0) != (pat_s > 0):
+            raise SystemExit(f"mg field band {band}: multigrid patterns "
+                             f"{'not ' if band == 0 else ''}built")
+        build_s = stage_log.seconds("mg_build")
+        line = {"band": band, "wall_s": wall, "mg_patterns_s": pat_s,
+                "mg_build_s": build_s, "solve_s": wall - pat_s - build_s,
+                "data_gen_s": gen_s, "cg_iters": k_it,
+                "residual": float(res.residual),
+                "diverged": int(res.diverged), "re_solved": re_solved,
+                "residual_trajectory": residual_trajectory(res),
+                "twolevel_residual": twolevel_bands[band]["residual"],
+                "twolevel_residual_trajectory":
+                    twolevel_bands[band]["residual_trajectory"],
+                "twolevel_cg_iters": twolevel_bands[band]["cg_iters"],
+                "slope_err_max": float(np.abs(err).max()),
+                "map_hit_fraction": cover, "launches": launches,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log("mg_field_band", json.dumps(line))
+        bands.append(line)
+    return bands, total, keep
+
+
+def phase_field_banded(geo, plan, stage_log):
+    """Phase B: the four matched-1/f bands of the full field, offsets
+    only. Band 0 through ``solve_band`` with the multigrid V-cycle and
+    the banded noise prior (bandwidth 4): its fallback warning must name
+    exactly the two planted groups. Then all four bands as one multi-RHS
+    ``destripe_planned`` with ``stack_multigrid`` and ``stack_banded``,
+    the joint route's sequence. Checks finite products, no divergence,
+    hit coverage and the K3 launches :func:`k3_launches` derives (the
+    offsets-only solve launches no K4)."""
+    import torch
+
+    from comapreduce_tpu_torch.cli.run_destriper import (_mg_patterns,
+                                                         solve_band)
+    from comapreduce_tpu_torch.fieldrun import (FIELD_FULL, MG_KW,
+                                                OFFSET_LENGTH, field_groups,
+                                                make_field_band_1f)
+    from comapreduce_tpu_torch.mapmaking.cuda_binning import (
+        binned_window_sum, windowed_gather)
+    from comapreduce_tpu_torch.mapmaking.destriper import (
+        build_multigrid_hierarchy, destripe_planned, stack_multigrid)
+    from comapreduce_tpu_torch.mapmaking.noise_weight import (
+        build_banded_weight, stack_banded)
+
+    sh = FIELD_FULL
+    L = OFFSET_LENGTH
+    npix = sh.nx * sh.ny
+    nw = {"bandwidth": 4}
+    t0 = time.perf_counter()
+    bands = [make_field_band_1f(sh, geo, b) for b in range(sh.n_bands)]
+    gen_s = time.perf_counter() - t0
+
+    def map_rms_err(m, sky, hit):
+        d = m[hit] - sky[hit]
+        return float(np.sqrt(np.mean((d - d.mean()) ** 2)))
+
+    def k3_check(label, k_it):
+        want = k3_launches(k_it, ground=False, nu=MG_KW["smooth"])
+        if binned_window_sum.launches != want:
+            raise SystemExit(f"{label} launched binned_window_sum "
+                             f"{binned_window_sum.launches} times, not "
+                             f"{want}")
+        if windowed_gather.launches:
+            raise SystemExit(f"{label} launched windowed_gather")
+
+    # band 0 through the band solve
+    data0, truth0, quality0 = bands[0]
+    stage_log.clear()
+    binned_window_sum.launches = windowed_gather.launches = 0
+    t1 = _synced()
+    res0 = solve_band(data0, offset_length=L, n_iter=100, threshold=1e-6,
+                      mg=MG_KW, noise_weight=nw, quality=quality0, band=0)
+    wall0 = _synced() - t1
+    groups = field_groups(sh)
+    planted = [groups[1], groups[sh.n_groups - 2]]
+    want_msg = (f"2 group(s) kept white weighting ({planted[0]['file']}/"
+                f"feed{planted[0]['feed']}:absent, {planted[1]['file']}/"
+                f"feed{planted[1]['feed']}:flagged)")
+    if not any(want_msg in w for w in stage_log.warnings):
+        raise SystemExit(f"banded band 0: no warning naming the planted "
+                         f"fallbacks ({want_msg}); warnings: "
+                         f"{stage_log.warnings}")
+    if any("re-solving" in w for w in stage_log.warnings):
+        raise SystemExit("banded band 0 diverged and was re-solved")
+    k3_check("banded band 0", int(res0.n_iter))
+    cover = _field_checks("banded band 0", res0, plan, npix)
+    if stage_log.seconds("mg_patterns") > 0 or stage_log.seconds(
+            "plan_build") > 0:
+        raise SystemExit("banded band 0 rebuilt a memoised stage")
+    hit = res0.hit_map.cpu().numpy() > 0
+    band0 = {"wall_s": wall0, "mg_build_s": stage_log.seconds("mg_build"),
+             "cg_iters": int(res0.n_iter), "residual": float(res0.residual),
+             "diverged": int(res0.diverged), "map_hit_fraction": cover,
+             "map_rms_err": map_rms_err(res0.destriped_map.cpu().numpy(),
+                                        truth0["sky"], hit),
+             "launches": binned_window_sum.launches,
+             "fallback_warning": want_msg}
+    log("banded_band0", json.dumps(band0))
+
+    # all four bands as one multi-RHS solve
+    pix = geo[0]
+    n = (pix.size // L) * L
+    t2 = time.perf_counter()
+    pats = _mg_patterns(pix[:n], npix, L, MG_KW["block"], MG_KW["levels"])
+    mg = stack_multigrid([build_multigrid_hierarchy(
+        pix[:n], d.weights[:n], npix, L, patterns=pats)
+        for d, _, _ in bands])
+    banded = stack_banded([build_banded_weight(
+        d.groups, q, n // L, L, band=b, bandwidth=nw["bandwidth"])[0]
+        for b, (d, _, q) in enumerate(bands)])
+    build_s = time.perf_counter() - t2
+    tod = torch.as_tensor(np.stack([d.tod[:n] for d, _, _ in bands]),
+                          device="cuda")
+    w = torch.as_tensor(np.stack([d.weights[:n] for d, _, _ in bands]),
+                        device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    binned_window_sum.launches = windowed_gather.launches = 0
+    t3 = _synced()
+    res = destripe_planned(tod, w, plan, n_iter=100, threshold=1e-6, mg=mg,
+                           mg_smooth=MG_KW["smooth"], banded=banded)
+    solve_s = _synced() - t3
+    k3_check("joint banded solve", int(res.n_iter))
+    cover = _field_checks("joint banded solve", res, plan, npix)
+    div = res.diverged.cpu().numpy()
+    if div.any():
+        raise SystemExit(f"joint banded solve diverged: {div.tolist()}")
+    hit = res.hit_map.cpu().numpy() > 0
+    maps = res.destriped_map.cpu().numpy()
+    joint = {"data_gen_s": gen_s, "host_build_s": build_s,
+             "solve_s": solve_s, "cg_iters": int(res.n_iter),
+             "residual": [float(r) for r in res.residual.cpu()],
+             "diverged": div.tolist(), "map_hit_fraction": cover,
+             "map_rms_err": [map_rms_err(maps[b], bands[b][1]["sky"], hit)
+                             for b in range(sh.n_bands)],
+             "launches": binned_window_sum.launches,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log("banded_joint", json.dumps(joint))
+    return {"band0": band0, "joint": joint}
+
+
+def phase_field_mg_profile(data, stage_log, top: int = 15):
+    """Phase C: one band of phase A under ``torch.profiler``: K3 and K4
+    per launch and as a share of device time, the device time under
+    ``index_add_`` (the V-cycle's restrictions and COO applies and the
+    group sums), ``index_select`` and ``einsum`` (the coarsest solve),
+    and the device's busy share of the solve (the host builds
+    excluded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from comapreduce_tpu_torch.cli.run_destriper import solve_band
+    from comapreduce_tpu_torch.fieldrun import MG_KW, OFFSET_LENGTH
+
+    stage_log.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = _synced()
+        res = solve_band(data, offset_length=OFFSET_LENGTH, use_ground=True,
+                         n_iter=100, threshold=1e-6, mg=MG_KW)
+        wall = _synced() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = {}
+    for e in events:
+        if e.key in ("aten::index_add_", "aten::einsum",
+                     "aten::index_select"):
+            ops[e.key] = {"device_ms": e.device_time_total / 1e3,
+                          "calls": e.count,
+                          "share_of_device_time": (e.device_time_total / 1e3
+                                                   / busy_ms)}
+    solve_s = wall - stage_log.seconds("mg_patterns") - stage_log.seconds(
+        "mg_build")
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    out = {"profiled_wall_s": wall, "profiled_solve_s": solve_s,
+           "cg_iters": int(res.n_iter), "device_kernel_ms": busy_ms,
+           "device_busy_share_of_solve": busy_ms / 1e3 / solve_s,
+           "k3": kernel_share(kernels, "binned_window_sum_kernel", busy_ms),
+           "k4": kernel_share(kernels, "windowed_gather_kernel", busy_ms),
+           "ops": ops,
+           "top_kernels": [{"kernel": e.key[:120],
+                            "ms": e.self_device_time_total / 1e3,
+                            "count": e.count} for e in kernels[:top]]}
+    log("mg_field_profile", json.dumps({k: v for k, v in out.items()
+                                        if k != "top_kernels"}))
+    for r in out["top_kernels"]:
+        log("mg_field_profile_kernel", json.dumps(r))
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     env = phase_environment()
@@ -1133,6 +1561,7 @@ def main() -> int:
     # the small field runs first: solve_band's plan memo holds one
     # pointing, and the full field's plan must stay in it for its bands
     report["small_field"] = phase_small_field()
+    report["small_mg_banded"] = phase_small_mg_banded()
     geo, field_plan, report["field_setup"] = phase_field_setup(stage_log)
     kernels = phase_kernel_parity(plan, FULL, field_plan)
     report["large_paths"] = phase_large_paths()
@@ -1143,8 +1572,15 @@ def main() -> int:
     report["field"], field_launches, band0 = phase_field(geo, field_plan,
                                                          stage_log)
     report["field_profile"] = phase_field_profile(band0, stage_log)
+    del band0
+    report["mg_field"], mg_launches, band0 = phase_field_mg(
+        geo, field_plan, stage_log, report["field"])
+    report["mg_field_profile"] = phase_field_mg_profile(band0, stage_log)
+    del band0
+    report["banded_field"] = phase_field_banded(geo, field_plan, stage_log)
     launches["windowed_gather"] = field_launches["windowed_gather"]
     report["field_launches"] = field_launches
+    report["mg_field_launches"] = mg_launches
     for k, v in kernels.items():
         v["launches"] = launches[k]
     report["kernels"] = list(kernels.values())

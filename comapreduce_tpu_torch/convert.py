@@ -1,6 +1,6 @@
 """State carried across from the reference package: the pointing plan, the
-reduction config, the two-level coarse system and the destriper's flat
-inputs.
+reduction config, the two-level coarse system, the multigrid hierarchy,
+the banded noise prior and the destriper's flat inputs.
 
 The port has no weights; what it must share with ``comapreduce_tpu`` to
 be held against it is state. These helpers take the reference's numpy
@@ -20,7 +20,8 @@ from comapreduce_tpu_torch.ops.reduce import ReduceConfig
 
 __all__ = ["PLAN_ARRAY_FIELDS", "PLAN_STATIC_FIELDS", "plan_from_reference",
            "plan_arrays", "reduce_config_from_reference",
-           "coarse_from_reference", "destriper_data_from_reference"]
+           "coarse_from_reference", "multigrid_from_reference",
+           "banded_from_reference", "destriper_data_from_reference"]
 
 PLAN_ARRAY_FIELDS = ("uniq_pixels", "sample_perm", "sample_pair",
                      "sample_base", "pair_rank", "pair_offset", "rank_base",
@@ -85,10 +86,27 @@ def coarse_from_reference(coarse) -> tuple[np.ndarray, np.ndarray]:
             np.array(ac_inv, dtype=np.float32, copy=True))
 
 
+def multigrid_from_reference(mg) -> tuple:
+    """A reference multigrid hierarchy (``build_multigrid_hierarchy`` or
+    ``stack_multigrid``) as a tuple of per-level dicts of numpy copies,
+    dtypes and any leading band axis kept."""
+    return tuple({k: np.array(v, copy=True) for k, v in lv.items()}
+                 for lv in mg)
+
+
+def banded_from_reference(banded):
+    """A reference ``(c0, cs)`` banded prior (single band or stacked) as
+    f32 numpy copies; ``None`` (every group white) stays ``None``."""
+    if banded is None:
+        return None
+    return tuple(np.array(b, dtype=np.float32, copy=True) for b in banded)
+
+
 def destriper_data_from_reference(ref) -> DestriperData:
     """The port's :class:`DestriperData` from a reference one (read by
-    attribute): numpy copies of the five flat arrays, the counts, and
-    the seen-pixel dictionary of a compacted pixel space."""
+    attribute): numpy copies of the five flat arrays, the counts, the
+    seen-pixel dictionary of a compacted pixel space and the per-group
+    metadata."""
     kw = {k: np.array(getattr(ref, k), copy=True) for k in DATA_ARRAY_FIELDS}
     space = getattr(ref, "pixel_space", None)
     if space is not None:
@@ -99,4 +117,6 @@ def destriper_data_from_reference(ref) -> DestriperData:
     return DestriperData(**kw, n_groups=int(ref.n_groups),
                          npix=int(ref.npix),
                          sky_pixels=None if sky is None else np.array(sky),
-                         pixel_space=space)
+                         pixel_space=space,
+                         groups=[dict(g) for g in getattr(ref, "groups",
+                                                          None) or []])

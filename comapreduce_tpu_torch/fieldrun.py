@@ -18,6 +18,14 @@ Signal (:func:`make_field_band`, numpy, seeded per band): a white sky,
 per-group random-walk (1/f-like) offset drifts, a per-group ground term
 ``g0 + g1 * az``, white noise; weights uniform in [0.5, 2] with a few
 zeros.
+
+The matched-1/f variant (:func:`make_field_band_1f`) feeds the
+offsets-only solve with the banded noise prior: no ground term, each
+group's correlated noise drawn from the 1/f PSD its quality record
+states, inverse-variance weights, and the records themselves (one group
+without a record and one flagged, so the prior's fallbacks are taken).
+Every band carries its per-group metadata (:func:`field_groups`), which
+the banded prior joins against the records.
 """
 
 from __future__ import annotations
@@ -31,8 +39,9 @@ from comapreduce_tpu_torch.mapmaking.destriper import ground_ids_per_offset
 from comapreduce_tpu_torch.mapmaking.leveldata import DestriperData
 
 __all__ = ["FieldShape", "FIELD_FULL", "FIELD_SMALL", "OFFSET_LENGTH",
-           "SOLVE_KW", "field_geometry", "make_field_band", "invariants",
-           "slope_errors", "SLOPE_ATOL"]
+           "SOLVE_KW", "MG_KW", "SAMPLE_RATE", "field_geometry",
+           "field_groups", "make_field_band", "make_field_band_1f",
+           "invariants", "slope_errors", "SLOPE_ATOL"]
 
 #: the band solve's settings for a ground field run: the ``run_destriper``
 #: CLI defaults (``comapreduce_tpu/cli/run_destriper.py:1276-1308``:
@@ -41,6 +50,12 @@ __all__ = ["FieldShape", "FIELD_FULL", "FIELD_SMALL", "OFFSET_LENGTH",
 OFFSET_LENGTH = 50
 SOLVE_KW = dict(offset_length=OFFSET_LENGTH, use_ground=True, coarse_block=8,
                 n_iter=100, threshold=1e-6)
+#: ``[Destriper] preconditioner = multigrid`` at the CLI's defaults
+#: (``comapreduce_tpu/cli/run_destriper.py:295-297``): two levels of
+#: offset blocks from block 8, one smoothing step
+MG_KW = {"levels": 2, "smooth": 1, "block": 8}
+#: COMAP's Level-2 sample rate, Hz
+SAMPLE_RATE = 50.0
 
 SKY_RMS = 1.0
 DRIFT_STEP = 0.05        # random-walk step of the offsets, per offset
@@ -48,6 +63,12 @@ G0_RMS = 1.0
 G1_RMS = 0.5
 WHITE_RMS = 0.1
 ZERO_WEIGHT_FRACTION = 1e-3
+# the matched-1/f variant: the reference's own fixture
+# (tests/test_noise_weight.py::_matched_1f_problem), each group's
+# parameters spread around it
+NOISE_SIGMA = 0.05
+NOISE_FKNEE = 1.0
+NOISE_ALPHA = -1.5
 
 #: largest |recovered - injected| az slope allowed per group, after the
 #: one shift per scan orientation is taken out (:func:`slope_errors`).
@@ -119,6 +140,14 @@ def field_geometry(shape: FieldShape):
             np.concatenate(az))
 
 
+def field_groups(shape: FieldShape) -> list:
+    """Per-group metadata in group order (observation, feed): the file
+    ``obs{o}.h5``, the feed, the sample rate and the kept samples."""
+    return [{"file": f"obs{o}.h5", "feed": f, "sample_rate": SAMPLE_RATE,
+             "n_samples": shape.stream_samples}
+            for o in range(shape.n_obs) for f in range(shape.n_feeds)]
+
+
 def make_field_band(shape: FieldShape, geometry, band: int,
                     seed: int = 5):
     """One band's :class:`DestriperData` and its truth
@@ -140,8 +169,63 @@ def make_field_band(shape: FieldShape, geometry, band: int,
     w[rng.random(N) < ZERO_WEIGHT_FRACTION] = 0.0
     data = DestriperData(tod=tod.astype(np.float32), pixels=pix,
                          weights=w.astype(np.float32), ground_ids=gid,
-                         az=az, n_groups=ng, npix=shape.nx * shape.ny)
+                         az=az, n_groups=ng, npix=shape.nx * shape.ny,
+                         groups=field_groups(shape))
     return data, {"sky": sky, "offsets": offsets, "ground": ground}
+
+
+def make_field_band_1f(shape: FieldShape, geometry, band: int,
+                       seed: int = 5):
+    """One band of the matched-1/f field run, drawn with numpy from
+    ``(seed, band)``: ``(data, truth, quality)``.
+
+    Each (observation, feed) group gets a 1/f model near the reference
+    fixture's (white sigma 0.05 x [0.8, 1.25], knee 1 Hz x [0.7, 1.3],
+    slope -1.5 + [-0.2, 0.2]); its correlated noise is drawn from
+    ``sigma^2 (f / fknee)^alpha`` with random phases, plus white noise
+    of rms sigma, on a white sky; its weights are ``1 / sigma^2``. No
+    ground term. ``quality`` holds one record per group
+    (``{"file", "feed", "band", "white_sigma", "fknee_hz", "alpha"}``)
+    except group 1, which has none, and group ``n_groups - 2``, whose
+    record is flagged: the banded prior keeps white weighting on those
+    two. ``truth`` is ``{"sky", "corr"}`` (the correlated noise)."""
+    pix, gid, az = geometry
+    ng, T = shape.n_groups, shape.stream_samples
+    if ng < 3:
+        raise ValueError(f"the planted fallbacks need 3 groups, got {ng}")
+    rng = np.random.default_rng([seed, band, 1])
+    sky = rng.normal(0.0, SKY_RMS, shape.nx * shape.ny)
+    sigma = NOISE_SIGMA * rng.uniform(0.8, 1.25, ng)
+    fknee = NOISE_FKNEE * rng.uniform(0.7, 1.3, ng)
+    alpha = NOISE_ALPHA + rng.uniform(-0.2, 0.2, ng)
+    freqs = np.fft.rfftfreq(T, d=1.0 / SAMPLE_RATE)
+    psd = np.zeros((ng, freqs.size))
+    psd[:, 1:] = (sigma[:, None] ** 2
+                  * (freqs[1:] / fknee[:, None]) ** alpha[:, None])
+    amp = np.sqrt(psd * T * SAMPLE_RATE / 2.0) / np.sqrt(SAMPLE_RATE)
+    phase = (rng.normal(size=psd.shape)
+             + 1j * rng.normal(size=psd.shape))
+    corr = np.fft.irfft(amp * phase, n=T, axis=-1).reshape(-1)
+    white = np.repeat(sigma, T) * rng.normal(size=ng * T)
+    tod = sky[pix] + corr + white
+    w = np.repeat(1.0 / sigma ** 2, T)
+    groups = field_groups(shape)
+    absent, flagged = 1, ng - 2
+    quality = []
+    for g, meta in enumerate(groups):
+        if g == absent:
+            continue
+        rec = {"file": meta["file"], "feed": meta["feed"], "band": band,
+               "white_sigma": float(sigma[g]), "fknee_hz": float(fknee[g]),
+               "alpha": float(alpha[g])}
+        if g == flagged:
+            rec["flagged"] = True
+        quality.append(rec)
+    data = DestriperData(tod=tod.astype(np.float32), pixels=pix,
+                         weights=w.astype(np.float32), ground_ids=gid,
+                         az=az, n_groups=ng,
+                         npix=shape.nx * shape.ny, groups=groups)
+    return data, {"sky": sky, "corr": corr}, quality
 
 
 def invariants(result, data: DestriperData, offset_length: int) -> dict:

@@ -10,17 +10,23 @@ Solves ``F^T W Z F a = F^T W Z d`` by preconditioned CG. Two paths:
   (kernel K3 on the card) plus small gathers. A leading axis on the TOD
   is a multi-RHS solve (the four bands against their shared pointing).
   The joint az-linear ground template adds a small ``(n_groups, 2)``
-  unknown block; its offset-order coefficient reads are kernel K4. The
-  two-level preconditioner (``coarse=``) adds an exact Galerkin
-  coarse-grid correction over blocks of offsets.
+  unknown block; its offset-order coefficient reads are kernel K4.
+  Preconditioners: Jacobi, the two-level one (``coarse=``, an exact
+  Galerkin coarse-grid correction over blocks of offsets) and the
+  multigrid V-cycle over a ladder of offset blocks (``mg=``, host build
+  :func:`build_multigrid_hierarchy`). ``banded=`` adds the measured-noise
+  offset prior of :mod:`~comapreduce_tpu_torch.mapmaking.noise_weight`
+  to the operator, and ``cg_dot="compensated"`` runs the CG dots in
+  float-float (:mod:`~comapreduce_tpu_torch.ops.precision`). The V-cycle,
+  the banded shifts and the float-float dots are plain PyTorch, as they
+  are plain ``jnp`` outside any Pallas kernel in the reference.
 - :func:`destripe`, the scatter path: per-sample ``index_add_`` binning,
   the oracle, and the route for ground groups that are not
   offset-aligned. Plain PyTorch on both devices, as the reference has no
   kernel there either.
 
-Not ported yet (``NotImplementedError``): the multigrid (``mg=``) and
-banded (``banded=``) preconditioners, sharded plans (``axis_name=``,
-``device_arrays=``) and compensated CG dots.
+Not ported yet (``NotImplementedError``): sharded plans (``axis_name=``,
+``device_arrays=``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from comapreduce_tpu_torch.mapmaking.binning import (accumulate_weights,
                                                      bin_map, naive_map,
@@ -38,11 +45,14 @@ from comapreduce_tpu_torch.mapmaking.cuda_binning import windowed_gather
 from comapreduce_tpu_torch.mapmaking.pixel_space import resolve_npix
 from comapreduce_tpu_torch.mapmaking.pointing_plan import (PointingPlan,
                                                            binned_window_sum)
+from comapreduce_tpu_torch.ops.precision import precise_dot
 from comapreduce_tpu_torch.resilience.tripwires import scrub_tod
 
 __all__ = ["DestriperResult", "destripe", "destripe_planned",
            "ground_ids_per_offset", "coarse_pattern",
-           "build_coarse_preconditioner", "DIVERGENCE_K",
+           "build_coarse_preconditioner", "multigrid_levels",
+           "multigrid_patterns", "build_multigrid_hierarchy",
+           "stack_multigrid", "MultigridUnavailable", "DIVERGENCE_K",
            "DIVERGENCE_GROWTH"]
 
 logger = logging.getLogger("comapreduce_tpu_torch")
@@ -52,6 +62,13 @@ logger = logging.getLogger("comapreduce_tpu_torch")
 # best iterate's (converged systems exempt)
 DIVERGENCE_K = 6
 DIVERGENCE_GROWTH = 100.0
+
+
+class MultigridUnavailable(ValueError):
+    """The geometry admits no multigrid ladder: every offset-block level
+    would have fewer than 2 unknowns (``destriper.py:56``). A type of its
+    own, so the band solve's Jacobi fallback catches this refusal and no
+    other error."""
 
 
 class DestriperResult(NamedTuple):
@@ -204,10 +221,7 @@ def _check_precond(precond: str, coarse=None, mg=None) -> str:
 
 
 def _check_cg_dot(cg_dot: str) -> None:
-    if cg_dot == "compensated":
-        raise NotImplementedError(
-            "cg_dot='compensated' is not ported yet; only 'f32' is")
-    if cg_dot != "f32":
+    if cg_dot not in ("f32", "compensated"):
         raise ValueError(
             f"cg_dot must be 'f32' or 'compensated', got {cg_dot!r}")
 
@@ -240,6 +254,16 @@ def _dot(x, y):
     s = (x[0] * y[0]).sum()
     if x[1] is not None:
         s = s + (x[1] * y[1]).sum()
+    return s
+
+
+def _dot_compensated(x, y):
+    """:func:`_dot` with each block contracted by the float-float
+    :func:`~comapreduce_tpu_torch.ops.precision.precise_dot`
+    (``destriper.py:291``)."""
+    s = precise_dot(x[0], y[0])
+    if x[1] is not None:
+        s = s + precise_dot(x[1], y[1])
     return s
 
 
@@ -304,7 +328,8 @@ def destripe(tod: torch.Tensor, pixels: torch.Tensor, weights: torch.Tensor,
             # starves the template directions (destriper.py:598)
             return (v[0] * inv_diag, v[1])
 
-    x, rz, k, b_norm, diverged, _ = _cg_loop(matvec, b, _dot, n_iter,
+    dot = _dot_compensated if cg_dot == "compensated" else _dot
+    x, rz, k, b_norm, diverged, _ = _cg_loop(matvec, b, dot, n_iter,
                                              threshold, precond=precond_fn)
     offsets, ground = x
     template = _expand(offsets, ground, ground_ids, az, offset_length)
@@ -428,9 +453,223 @@ def build_coarse_preconditioner(pixels, weights, npix, offset_length: int,
     return grp, inv.astype(np.float32)
 
 
+def multigrid_levels(n_offsets: int, block: int = 8, levels: int = 2,
+                     max_coarse: int = 4096) -> list[int]:
+    """The offset-block ladder ``b_1 < ... < b_L`` of the multigrid
+    hierarchy, finest to coarsest (``destriper.py:792``): ``block``
+    times 8 per level, the coarsest doubled until its system fits
+    ``max_coarse`` unknowns; levels that stop coarsening or leave fewer
+    than 2 unknowns are dropped (a 1-block system is pure null mode),
+    down to a halving two-grid block, or ``[]`` when no level with 2
+    unknowns exists (``n_offsets < 3``)."""
+    blocks = []
+    b = max(int(block), 2)
+    for _ in range(max(int(levels), 1)):
+        blocks.append(b)
+        b *= 8
+    n_off = max(int(n_offsets), 1)
+    while -(-n_off // blocks[-1]) > max_coarse:
+        blocks[-1] *= 2
+    # every surviving block divides every larger one, so dropping a level
+    # keeps the adjacent-level nesting
+    out = []
+    prev_n = n_off
+    for bk in blocks:
+        n_b = -(-n_off // bk)
+        if 2 <= n_b < prev_n:
+            out.append(bk)
+            prev_n = n_b
+    if out:
+        return out
+    half = -(-n_off // 2)
+    return [half] if half >= 2 and -(-n_off // half) >= 2 else []
+
+
+def multigrid_patterns(pixels, npix, offset_length: int, block: int = 8,
+                       levels: int = 2, max_coarse: int = 4096) -> dict:
+    """Weights-independent half of the multigrid build
+    (``destriper.py:838``): one :func:`coarse_pattern` per ladder level,
+    shared by every band of one pointing. Raises
+    :class:`MultigridUnavailable` when the geometry admits no level."""
+    npix = resolve_npix(npix)
+    pixels = np.asarray(pixels)
+    n_off = (pixels.size // int(offset_length))
+    blocks = multigrid_levels(n_off, block=block, levels=levels,
+                              max_coarse=max_coarse)
+    if not blocks:
+        raise MultigridUnavailable(
+            f"n_offsets={n_off} is too small for any multigrid level "
+            "(every block leaves < 2 unknowns — the coarse system "
+            "would be pure null mode); run jacobi/twolevel instead")
+    # intermediate patterns keep their exact block (no internal doubling)
+    pats = [coarse_pattern(pixels, npix, offset_length, block=bk,
+                           max_coarse=max(n_off, 1))
+            for bk in blocks[:-1]]
+    pats.append(coarse_pattern(pixels, npix, offset_length,
+                               block=blocks[-1],
+                               max_coarse=max_coarse))
+    return {"blocks": blocks, "patterns": pats}
+
+
+def build_multigrid_hierarchy(pixels, weights, npix, offset_length: int,
+                              block: int = 8, levels: int = 2,
+                              max_coarse: int = 4096, ridge: float = 3e-3,
+                              patterns: dict | None = None) -> tuple:
+    """Galerkin offset-block hierarchy of the multigrid V-cycle, built on
+    the host in f64 (``destriper.py:868``; the same numpy and scipy calls
+    in the same order, so the output is the reference's bit for bit).
+
+    Each intermediate level ``k`` (block ``b_k``) carries the exact
+    Galerkin operator
+
+        A_k = diag(sum w per block) - Mat_k^T diag(1/sumw_pix) Mat_k
+
+    as COO triplets with its Jacobi inverse diagonal; the coarsest level
+    is :func:`build_coarse_preconditioner`'s dense ridged inverse. Every
+    level keeps zero row sums and non-positive off-diagonals, so
+    ``lambda(D_k^{-1} A_k) <= 2`` and any damping ``omega < 1`` gives a
+    convergent smoother and an SPD V-cycle.
+
+    Returns a tuple of per-level dicts of numpy arrays: intermediate
+    levels ``{grp, rows, cols, vals, invd}`` (``grp`` maps the previous
+    level's index to this level's block), the coarsest ``{grp, ac_inv}``.
+    Bands with their own weights share ``patterns`` and stack with
+    :func:`stack_multigrid`."""
+    import scipy.sparse as sp
+
+    npix = resolve_npix(npix)
+    if patterns is None:
+        patterns = multigrid_patterns(pixels, npix, offset_length,
+                                      block=block, levels=levels,
+                                      max_coarse=max_coarse)
+    blocks, pats = patterns["blocks"], patterns["patterns"]
+    p0 = pats[0]
+    n, pix, off_id = p0["n"], p0["pix"], p0["off_id"]
+    n_off = p0["grp"].size
+    w = np.asarray(weights, np.float64)[:n].copy()
+    w[p0["bad"]] = 0.0
+
+    sw_pix = np.bincount(pix, weights=w, minlength=npix)
+    inv_sw = np.where(sw_pix > 0, 1.0 / np.maximum(sw_pix, 1e-30), 0.0)
+    sw_off = np.bincount(off_id, weights=w, minlength=n_off)
+
+    out = []
+    for k, pat in enumerate(pats[:-1]):
+        n_c = pat["n_c"]
+        mw = np.bincount(pat["inv"], weights=w)
+        mat = sp.coo_matrix((mw, (pat["rows"], pat["cols"])),
+                            shape=(npix, n_c)).tocsr()
+        d_c = np.bincount(pat["grp"], weights=sw_off, minlength=n_c)
+        a_k = (sp.diags(d_c) - mat.T @ sp.diags(inv_sw) @ mat).tocsr()
+        diag = a_k.diagonal()
+        # level Jacobi inverse, _jacobi_inverse's degenerate-offset rule
+        cut = 1e-6 * np.maximum(d_c, 1e-30)
+        safe = np.where(diag > cut, diag, np.where(d_c > 0, d_c, 1.0))
+        coo = a_k.tocoo()
+        grp = (pat["grp"] if k == 0 else
+               np.arange(-(-n_off // blocks[k - 1]), dtype=np.int64)
+               // (blocks[k] // blocks[k - 1]))
+        out.append({"grp": np.asarray(grp, np.int32),
+                    "rows": coo.row.astype(np.int32),
+                    "cols": coo.col.astype(np.int32),
+                    "vals": coo.data.astype(np.float32),
+                    "invd": (1.0 / safe).astype(np.float32)})
+    # coarsest: the dense ridged inverse, restricted from the last
+    # intermediate level (or from the offsets on a one-level ladder)
+    _, ac_inv = build_coarse_preconditioner(
+        pixels, weights, npix, offset_length, block=blocks[-1],
+        ridge=ridge, max_coarse=max_coarse, pattern=pats[-1])
+    if len(blocks) == 1:
+        grp_c = pats[-1]["grp"]
+    else:
+        n_prev = -(-n_off // blocks[-2])
+        grp_c = np.arange(n_prev, dtype=np.int64) \
+            // (blocks[-1] // blocks[-2])
+    out.append({"grp": np.asarray(grp_c, np.int32), "ac_inv": ac_inv})
+    return tuple(out)
+
+
+def stack_multigrid(hierarchies: list) -> tuple:
+    """Per-band hierarchies (shared patterns) as one multi-RHS hierarchy
+    (``destriper.py:969``): ``vals``, ``invd`` and ``ac_inv`` gain a
+    leading band axis; the index stencils are taken from the first."""
+    first = hierarchies[0]
+    out = []
+    for lv_i, lv in enumerate(first):
+        stacked = {}
+        for key, val in lv.items():
+            if key in ("vals", "invd", "ac_inv"):
+                stacked[key] = np.stack(
+                    [np.asarray(h[lv_i][key]) for h in hierarchies])
+            else:
+                stacked[key] = val
+        out.append(stacked)
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # planned path
 # ---------------------------------------------------------------------------
+
+def _vcycle_precond(mg, matvec, inv_diag, mg_smooth: int, omega: float,
+                    dt, dev):
+    """The symmetric V(nu, nu)-cycle of :func:`destripe_planned`'s ``mg=``
+    (``destriper.py:1342-1395``) as a preconditioner ``v -> M^-1 v``.
+
+    At each level: pre-smooth from zero (the first damped-Jacobi step is
+    ``x = omega D^-1 r`` exactly, no matvec), restrict the residual to the
+    next level's blocks with ``index_add_`` (exact Galerkin), recurse (the
+    coarsest level is one product with its dense inverse), prolong by
+    ``index_select`` and post-smooth ``nu`` times. Level operators below
+    the fine one are their COO triplets, applied as one gather, multiply
+    and ``index_add_``. Leading band axes of the hierarchy broadcast."""
+    nu = max(int(mg_smooth), 1)
+    levels = []
+    for lv in mg:
+        t = {"grp": torch.as_tensor(np.asarray(lv["grp"]), device=dev).to(
+            torch.int64)}
+        if "ac_inv" in lv:
+            t["ac_inv"] = torch.as_tensor(lv["ac_inv"], dtype=dt, device=dev)
+        else:
+            t["rows"] = torch.as_tensor(np.asarray(lv["rows"]),
+                                        device=dev).to(torch.int64)
+            t["cols"] = torch.as_tensor(np.asarray(lv["cols"]),
+                                        device=dev).to(torch.int64)
+            t["vals"] = torch.as_tensor(lv["vals"], dtype=dt, device=dev)
+            t["invd"] = torch.as_tensor(lv["invd"], dtype=dt, device=dev)
+        levels.append(t)
+
+    def coo_apply(lv, x):
+        # A_k x over the level's triplets; bands broadcast through
+        contrib = lv["vals"] * torch.index_select(x, -1, lv["cols"])
+        n_k = lv["invd"].shape[-1]
+        return torch.zeros(contrib.shape[:-1] + (n_k,), dtype=dt,
+                           device=dev).index_add_(-1, lv["rows"], contrib)
+
+    def restrict(grp, res, n_next):
+        return torch.zeros(res.shape[:-1] + (n_next,), dtype=dt,
+                           device=dev).index_add_(-1, grp, res)
+
+    def vcycle(idx, r, apply_a, invd):
+        x = omega * invd * r
+        for _ in range(nu - 1):
+            x = x + omega * invd * (r - apply_a(x))
+        lv = levels[idx]
+        res = r - apply_a(x)
+        if "ac_inv" in lv:            # coarsest: the dense ridged inverse
+            rc = restrict(lv["grp"], res, lv["ac_inv"].shape[-1])
+            ec = torch.einsum("...ij,...j->...i", lv["ac_inv"], rc)
+        else:
+            rc = restrict(lv["grp"], res, lv["invd"].shape[-1])
+            ec = vcycle(idx + 1, rc, lambda v, lv=lv: coo_apply(lv, v),
+                        lv["invd"])
+        x = x + torch.index_select(ec, -1, lv["grp"])
+        for _ in range(nu):           # symmetric post-smooth
+            x = x + omega * invd * (r - apply_a(x))
+        return x
+
+    return lambda v: vcycle(0, v, matvec, inv_diag)
+
 
 def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
                      plan: PointingPlan, n_iter: int = 100,
@@ -438,7 +677,8 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
                      axis_name=None, dense_maps: bool = True,
                      device_arrays: dict | None = None,
                      ground_off=None, az=None, n_groups: int = 0,
-                     coarse=None, mg=None, banded=None,
+                     coarse=None, mg=None, mg_smooth: int = 1,
+                     mg_omega: float = 2.0 / 3.0, banded=None,
                      x0: torch.Tensor | None = None,
                      precond: str = "jacobi", cg_dot: str = "f32",
                      trace_iters: int = 0) -> DestriperResult:
@@ -459,7 +699,28 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
     (single-RHS, cold start). ``coarse``: ``(grp, ac_inv)`` from
     :func:`build_coarse_preconditioner` upgrades Jacobi to the additive
     two-level preconditioner; ``ac_inv`` may carry a leading band axis.
-    Both compose; the coarse correction acts on the offsets block."""
+    Both compose; the coarse correction acts on the offsets block.
+
+    ``mg``: a hierarchy from :func:`build_multigrid_hierarchy` (or
+    :func:`stack_multigrid` for a multi-RHS solve; numpy arrays or
+    tensors) replaces the two-level correction with a symmetric
+    V(nu, nu)-cycle, ``nu = mg_smooth`` damped-Jacobi steps (damping
+    ``mg_omega`` in (0, 1)) around an exact-Galerkin restriction at every
+    level, the coarsest solved by its dense inverse. The fine level's
+    operator is this solve's own matvec, so one application costs
+    ``2 nu`` fine matvecs. Requires ``precond='jacobi'``, excludes
+    ``coarse``; on the ground solve it acts on the offsets block.
+
+    ``banded``: ``(c0, cs)`` from :func:`~comapreduce_tpu_torch.
+    mapmaking.noise_weight.build_banded_weight` adds the symmetric banded
+    offset prior ``B`` to the operator (``A + B``; ``c0`` the diagonal,
+    ``cs[..., j-1, i] = B[i, i+j]``), inside the matvec and the Jacobi
+    diagonal; the right-hand side is unchanged. Leading band axes
+    broadcast. Offsets-only solves only.
+
+    ``cg_dot="compensated"`` takes the CG recurrence dots through the
+    float-float :func:`~comapreduce_tpu_torch.ops.precision.precise_dot`
+    (per band on a multi-RHS solve)."""
     _check_precond(precond, coarse, mg)
     with_ground = ground_off is not None
     if with_ground and tod.ndim != 1:
@@ -473,13 +734,16 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
     if x0 is not None and with_ground:
         raise ValueError("x0 warm start is offsets-only; the joint "
                          "ground solve restarts cold")
-    unported = {"axis_name": axis_name, "device_arrays": device_arrays,
-                "mg": mg, "banded": banded}
+    unported = {"axis_name": axis_name, "device_arrays": device_arrays}
     for name, val in unported.items():
         if val is not None:
             raise NotImplementedError(
                 f"destripe_planned({name}=...) is not ported yet")
     _check_cg_dot(cg_dot)
+    if mg is not None and not 0.0 < float(mg_omega) < 1.0:
+        raise ValueError(f"mg_omega must be in (0, 1) — the "
+                         f"Gershgorin-safe damping range — got "
+                         f"{float(mg_omega)}")
     dv = plan.device(tod.device)
     tod, weights = scrub_tod(tod, weights)
     dt = tod.dtype
@@ -541,10 +805,30 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
         return torch.where(pr_off_ok, torch.index_select(m, -1, pr_off_clip),
                            zero)
 
+    if banded is not None:
+        b_c0 = torch.as_tensor(banded[0], dtype=dt, device=dev)
+        b_cs = torch.as_tensor(banded[1], dtype=dt, device=dev)
+
+        def banded_apply(a):
+            # the symmetric prior from its diagonal and upper bands, as
+            # shifted adds with zero fill (destriper.py:1299): the builder
+            # zeroes every coupling across a group boundary
+            out = b_c0 * a
+            for j in range(1, int(b_cs.shape[-2]) + 1):
+                cj = b_cs[..., j - 1, :]
+                # upper band: row i adds cj[i] * a[i+j] ...
+                out = out + cj * F.pad(a[..., j:], (0, j))
+                # ... and its transpose: row i+j adds cj[i] * a[i]
+                out = out + F.pad((cj * a)[..., :-j], (j, 0))
+            return out
+
     def matvec(a):
         pav = pair_w * gather_a(a)
         m = to_map(pav)
-        return diag * a - off_sum(pair_w_off * gather_m(m))
+        out = diag * a - off_sum(pair_w_off * gather_m(m))
+        if banded is not None:
+            out = out + banded_apply(a)
+        return out
 
     m_d = to_map(pair_wd)
     gm_md = gather_m(m_d)
@@ -556,8 +840,17 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
         inv_sw = torch.where(sum_w > 0,
                              1.0 / torch.clamp(sum_w, min=1e-30), zero)
         corr = off_sum(pair_w_off * pair_w_off * gather_m(inv_sw))
-        inv_diag = _jacobi_inverse(diag - corr, diag)
-        if coarse is None:
+        if banded is not None:
+            # diag(A + B): the prior's diagonal rides the true diagonal
+            # and the degenerate-offset fallback alike
+            inv_diag = _jacobi_inverse(diag - corr + b_c0, diag + b_c0)
+        else:
+            inv_diag = _jacobi_inverse(diag - corr, diag)
+        if mg is not None:
+            apply_precond = _vcycle_precond(mg, matvec, inv_diag,
+                                            int(mg_smooth), float(mg_omega),
+                                            dt, dev)
+        elif coarse is None:
             def apply_precond(v):
                 return v * inv_diag
         else:
@@ -624,15 +917,20 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
                 return (apply_precond(v[0]), v[1])
 
         x, rz, k, b_norm, diverged, cg_trace = _cg_loop(
-            matvec_g, b_g, _dot, n_iter, threshold, precond=precond_g,
-            trace_n=trace_iters)
+            matvec_g, b_g,
+            _dot_compensated if cg_dot == "compensated" else _dot, n_iter,
+            threshold, precond=precond_g, trace_n=trace_iters)
         a, ground = x
         c0 = a + ground[:, 0][grp_off]
         c1 = ground[:, 1][grp_off]
         pair_res = pair_wd - (pair_w * gather_a(c0) + paz * gather_a(c1))
     else:
-        def dot_b(u, v):
-            return (u * v).sum(dim=-1)
+        if cg_dot == "compensated":
+            def dot_b(u, v):
+                return precise_dot(u, v, axis=-1)
+        else:
+            def dot_b(u, v):
+                return (u * v).sum(dim=-1)
 
         a, rz, k, b_norm, diverged, cg_trace = _cg_loop(
             matvec, b, dot_b, n_iter, threshold, precond=apply_precond,

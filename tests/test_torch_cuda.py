@@ -7,7 +7,10 @@ its selection, on odd and even windows and in its second body, K3
 (windowed gather) on every lane kind (in-window, out-of-window, sentinel
 ids >= S, clipped window starts) with two and three source rows and in
 its scalar body, each against its plain version. The edge rows, the
-stress layout and the lane-kind case are ``chip_smoke.py``'s.
+stress layout and the lane-kind case are ``chip_smoke.py``'s. Beside the
+kernels: ``precise_dot`` on the card against a float64 dot, and the
+band solve under the multigrid V-cycle with and without the banded
+noise prior, card against CPU at FIELD_SMALL.
 
 This file imports neither ``jax`` nor the JAX package, so it runs on a
 machine with a card and no JAX: ``python -m pytest tests/test_torch_cuda.py``.
@@ -22,15 +25,25 @@ bitwise on integer-valued sums (exact in f32 in any order) and, on real
 values, each bin within gamma(n-1) * sum|x| of its exact f64 sum, a
 bound that holds for every summation order
 (``chip_smoke.check_window_sum``). K4 copies one source word per lane:
-bitwise.
+bitwise. ``precise_dot``: within u |exact| plus (depth + 2)^2 u^2
+sum|x y| of the float64 dot (``chip_smoke.phase_small_mg_banded``).
+Converged band solves, card against CPU: 5e-4 absolute on the
+null-space-invariant or mean-removed products (``chip_smoke.FIELD_ATOL``;
+K3's atomics reorder the card's sums).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (K2_LONGEST_WINDOW, fill_edge_rows, gather_lane_case,
-                        median_edge_rows, window_sum_stress_case)
+from chip_smoke import (FIELD_ATOL, K2_LONGEST_WINDOW, fill_edge_rows,
+                        gather_lane_case, median_edge_rows, precise_dot_case,
+                        window_sum_stress_case)
+from comapreduce_tpu_torch.cli.run_destriper import solve_band
+from comapreduce_tpu_torch.fieldrun import (FIELD_SMALL, MG_KW, OFFSET_LENGTH,
+                                            field_geometry, invariants,
+                                            make_field_band,
+                                            make_field_band_1f)
 from comapreduce_tpu_torch.mapmaking.cuda_binning import (
     binned_window_sum, binned_window_sum_plain, windowed_gather,
     windowed_gather_plain)
@@ -38,6 +51,7 @@ from comapreduce_tpu_torch.ops.cuda_median import (
     RM_OUT, fill_row_on_chip, masked_fill, masked_fill_plain,
     rolling_median_sorts, rolling_median_windows,
     rolling_median_windows_plain)
+from comapreduce_tpu_torch.ops.precision import precise_dot
 
 F32_U = 2.0 ** -24
 
@@ -216,3 +230,46 @@ def test_cuda_rolling_median_second_body(cuda_device, w):
     x = rng.normal(size=(2, w + 299)).astype(np.float32)
     x[1, 100] = np.nan
     _median_bitwise(torch.as_tensor(x, device=cuda_device), w)
+
+
+# the field solve's offset count (206 264) and an odd length
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [206_264, 4097])
+def test_cuda_precise_dot_matches_float64(cuda_device, n):
+    x, y, exact = precise_dot_case(n, seed=3)
+    got = float(precise_dot(torch.as_tensor(x, device=cuda_device),
+                            torch.as_tensor(y, device=cuda_device)))
+    abs_sum = float(np.dot(np.abs(x).astype(np.float64),
+                           np.abs(y).astype(np.float64)))
+    depth = int(np.ceil(np.log2(n)))
+    assert abs(got - exact) <= (F32_U * abs(exact)
+                                + (depth + 2) ** 2 * F32_U ** 2 * abs_sum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ground_mg", "banded_mg"])
+def test_cuda_multigrid_band_solve_matches_cpu(cuda_device, case):
+    geo = field_geometry(FIELD_SMALL)
+    kw = dict(offset_length=OFFSET_LENGTH, n_iter=100, threshold=1e-6,
+              mg=MG_KW)
+    if case == "ground_mg":
+        data, _ = make_field_band(FIELD_SMALL, geo, 0)
+        kw["use_ground"] = True
+    else:
+        data, _, quality = make_field_band_1f(FIELD_SMALL, geo, 0)
+        kw.update(noise_weight={"bandwidth": 4}, quality=quality, band=0)
+    res = {dev: solve_band(data, device=dev, **kw)
+           for dev in (cuda_device, "cpu")}
+    for r in res.values():
+        assert float(r.residual) < 1e-6 and int(r.diverged) == 0
+    card, cpu = res[cuda_device], res["cpu"]
+    if case == "ground_mg":
+        a = invariants(card, data, OFFSET_LENGTH)
+        b = invariants(cpu, data, OFFSET_LENGTH)
+    else:
+        a, b = ({"offsets": r.offsets.cpu().numpy()
+                 - float(r.offsets.mean())} for r in (card, cpu))
+    for k in a:
+        np.testing.assert_allclose(a[k], b[k], rtol=0, atol=FIELD_ATOL,
+                                   err_msg=k)
+    assert torch.equal(card.hit_map.cpu(), cpu.hit_map)

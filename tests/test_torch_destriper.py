@@ -182,13 +182,14 @@ def test_jacobi_inverse_matches_reference():
         np.asarray(ref_jacobi_inverse(jnp.asarray(da), jnp.asarray(diag))))
 
 
-# ground_off= and coarse= are ported now: tests/test_torch_ground.py and
-# tests/test_torch_coarse.py hold them to the reference, and
-# test_torch_ground.py::test_reference_value_errors the reference's
-# ValueError contracts that replace their NotImplementedError here
+# ground_off=, coarse=, mg=, banded= and cg_dot="compensated" are ported
+# now (tests/test_torch_{ground,coarse,multigrid,noise_weight,precision}.py
+# hold them to the reference); the sharded options still raise, whatever
+# else is asked
 @pytest.mark.parametrize("kw", [
-    {"mg": ()}, {"banded": (0, 0)}, {"axis_name": "x"},
-    {"device_arrays": {}}, {"cg_dot": "compensated"}])
+    {"axis_name": "x", "mg": ()}, {"axis_name": "x", "banded": (0, 0)},
+    {"axis_name": "x"}, {"device_arrays": {}},
+    {"axis_name": "x", "cg_dot": "compensated"}])
 def test_unported_options_raise(kw):
     pix, tod, w, npix, L = _problem(n=1000)
     plan = _port_plan(ref_build_plan(pix, npix, L))
