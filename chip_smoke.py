@@ -80,7 +80,24 @@ Phases, in order; any failure exits non-zero and no result is printed:
    resumed from a snapshot saved after 50 iterations: only the remaining
    chunks run, counted from K3's launches and the telemetry stream) and
    band 0 on a compacted HEALPix space written as a partial map and read
-   back.
+   back;
+10. phase E, the Level-1 -> Level-2 stage chain of the shipped field
+   reduction (``examples/configs/configuration.toml``, ``[resilience]``
+   and ``[quality]`` off): the stages ``Runner.from_config`` builds, run
+   by ``Runner._run_file`` with the Level-2 store kept in memory (the
+   card's machine has no h5py; the CPU tests hold the file write).
+   First the reference pipeline test's observation (F=2, B=2, C=32, 3
+   scans of 600) on the card and on the CPU, every Level-2 dataset
+   compared (``level2_diffs``); then full width: F=19, B=4, C=1024, the
+   flagship's 10 CES scans of 13 500 samples, the TOD a lazy dataset
+   generated on the card at each read (``make_device_tod_class``). The
+   products must be finite, the vane must recover the generator's truth,
+   the averaged TOD must be zero outside scans, the spike share < 0.5,
+   the white levels > 0, and K1 and K2 must launch as the code derives
+   (once per feed and scan chunk, K2 once more in ``Spikes``); per-stage
+   walls with the reads apart, the planner's choice and estimate beside
+   the reduction's measured peak, and K1 and K2 at the chain's shapes
+   against their plain versions (bitwise), bounds and ``torch.median``.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -337,6 +354,14 @@ def fill_edge_rows(L: int, seed: int = 23):
     return tod, mask
 
 
+def host_mem_total() -> str:
+    """The host's ``MemTotal`` line of ``/proc/meminfo`` (phase E holds
+    a feed batch of 2.2 GB feeds on the host)."""
+    with open("/proc/meminfo") as fh:
+        return next((ln.split(":", 1)[1].strip() for ln in fh
+                     if ln.startswith("MemTotal")), "not reported")
+
+
 def phase_environment():
     import torch
 
@@ -355,7 +380,8 @@ def phase_environment():
            "device_count": torch.cuda.device_count(),
            "nvidia_smi": smi_line(),
            "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
-           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32}
+           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32,
+           "host_mem_total": host_mem_total()}
     if env["allow_tf32_matmul"] or env["allow_tf32_cudnn"]:
         raise SystemExit("chip_smoke: TF32 must be off for f32 parity")
     log("env", json.dumps(env))
@@ -1886,6 +1912,603 @@ def phase_field_mg_profile(data, stage_log, top: int = 15):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase E: the Level-1 -> Level-2 stage chain of the shipped configuration
+# ---------------------------------------------------------------------------
+
+SHIPPED_CONFIG = os.path.join("examples", "configs", "configuration.toml")
+
+# How two Level-2 stores of one observation are held to each other, the
+# port against the reference on the CPU (tests/test_torch_stages.py,
+# tests/test_torch_runner.py) and the card against the CPU (phase E):
+# - spectrometer/*, scan edges and every integer dataset: equal (copied
+#   or computed on the host);
+# - vane/*: rtol 2e-5 plus 1e-6 of scale, the reference's vane tolerance
+#   (tests/test_torch_reduce.py; measured 3.5e-7 of scale);
+# - atmosphere/fit_values: the fitted model offset + slope * airmass at
+#   each scan's lowest and highest airmass within 2e-4 of scale, the
+#   pre-filter's tolerance in tests/test_torch_reduce.py (measured 0 on
+#   the CPU). The coefficients themselves are not compared: at constant
+#   elevation (the synthetic observation's) the airmass variance is f32
+#   round-off, so the slope is round-off too (~1e7, ROADMAP §3) and the
+#   card's summation order moves it by more than its own size, while the
+#   model stays right;
+# - averaged_tod/* and */auto_rms: TOD_RTOL (2e-3) of scale, the chain's
+#   tolerance (the gain solve's zpp conditioning; measured 1.2e-4);
+# - spikes/spike_mask: at most SPIKE_FLIP_FRACTION of samples differ: a
+#   sample whose high-passed value lies within f32 rounding of 10 rms may
+#   flag in one run and not the other, and each flag widens to 2 pad + 1
+#   samples (measured: equal);
+# - */fnoise_fit_parameters: the same NaN pattern, and the fitted models
+#   (not the parameters) agree at every log bin the fit used to within
+#   that bin's own standard error, 1/sqrt(k) relative for a mean of k
+#   exponentially distributed PSD samples: two fits that close are fits
+#   the data cannot tell apart. On white data (the synthetic
+#   observation's averaged TOD) the 1/f parameters are degenerate: inputs
+#   1e-5 apart send the f32 LM paths to different minima of one flat
+#   surface, sigma^2 up to 20x apart, and the models differ by up to
+#   0.43 of a standard error (measured on the CPU, port against the
+#   reference, on the reference pipeline test's observation at seed 8,
+#   where the reference's knee fit tilts across the band and the port's
+#   is flat; 0.02 at seed 7).
+VANE_RTOL = 2e-5
+ATMOS_RTOL = 2e-4
+SPIKE_FLIP_FRACTION = 1e-3
+NOISE_BIN_SIGMAS = 1.0
+# the shipped config's fit binning and the stage's scan-length buckets
+NOISE_NBINS = 12
+NOISE_QUANTUM = 128
+NOISE_MAX_BUCKETS = 16
+
+
+def atmosphere_model(fit_values, el, edges):
+    """The fitted atmosphere model ``offset + slope * airmass`` at each
+    scan's lowest and highest airmass, f64[S, F, B, 2, C], from
+    ``atmosphere/fit_values`` (S, F, B, 2, C), the pointing's elevation
+    (F, T) in degrees and the scan edges."""
+    fv = np.asarray(fit_values, np.float64)
+    am = 1.0 / np.sin(np.radians(np.asarray(el, np.float64)))
+    ends = np.stack([np.stack([am[:, s:e].min(axis=1), am[:, s:e].max(axis=1)],
+                              axis=-1) for s, e in np.asarray(edges)])
+    # (S, F, 2) airmass ends -> (S, F, 1, 2, 1) against (S, F, B, 1, C)
+    return fv[..., 0:1, :] + fv[..., 1:2, :] * ends[:, :, None, :, None]
+
+
+def noise_bins(lq: int, nbins: int = NOISE_NBINS, fs: float = 50.0):
+    """Centre frequencies and sample counts of the non-empty log bins a
+    fit over ``lq`` samples uses (``ops/power.log_bin_psd``'s binning, in
+    numpy)."""
+    freqs = np.fft.rfftfreq(lq, d=1.0 / fs).astype(np.float32)
+    lo, hi = np.log10(freqs[1]), np.log10(freqs[-1])
+    step = np.arange(nbins, dtype=np.float32) / nbins
+    edges = 10.0 ** np.append(lo * (1 - step) + hi * step, hi)
+    ids = np.clip(np.searchsorted(edges, freqs, side="right") - 1, 0,
+                  nbins - 1)
+    valid = freqs >= freqs[1]
+    k = np.bincount(ids, weights=valid, minlength=nbins)
+    nu = np.bincount(ids, weights=freqs * valid, minlength=nbins)
+    keep = k > 0
+    return nu[keep] / k[keep], k[keep]
+
+
+def noise_model(params, nu, knee: bool):
+    """The fitted noise model of ``params`` (..., 3) at ``nu``, f64."""
+    p = np.asarray(params, np.float64)
+    s, b, a = p[..., 0:1], p[..., 1:2], p[..., 2:3]
+    if knee:
+        return s * (1.0 + np.abs(nu / b) ** a)
+    return s + b * np.abs(nu) ** a
+
+
+def noise_fit_measure(got, want, knee: bool, edges) -> float:
+    """How far two noise fits (F, B, S, 3) lie apart, in units of their
+    limit (1 = at it): max |m_got / m_want - 1| sqrt(k) / NOISE_BIN_SIGMAS
+    over each scan's log bins of k samples."""
+    from comapreduce_tpu_torch.pipeline.stages import bucket_scan_lengths
+
+    worst = 0.0
+    for lq, sids in bucket_scan_lengths(edges, NOISE_QUANTUM,
+                                        NOISE_MAX_BUCKETS).items():
+        nu, k = noise_bins(lq)
+        for si in sids:
+            ok = ~np.isnan(want[..., si, 0])
+            mg = noise_model(got[..., si, :][ok], nu, knee)
+            mw = noise_model(want[..., si, :][ok], nu, knee)
+            rel = np.abs(mg / mw - 1.0) * np.sqrt(k) / NOISE_BIN_SIGMAS
+            worst = max(worst, float(rel.max(initial=0.0)))
+    return worst
+
+
+def level2_diffs(got, want) -> dict:
+    """Compare two Level-2 stores dataset by dataset under the rules
+    above. Returns ``{name: (measure, limit)}`` for every dataset of
+    ``want``; a dataset missing from ``got`` or with another shape or
+    dtype raises."""
+    out = {}
+    for name in sorted(want.keys()):
+        b = np.asarray(want[name])
+        if name not in got:
+            raise KeyError(f"{name} missing")
+        a = np.asarray(got[name])
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"{name}: {a.shape} {a.dtype} vs "
+                             f"{b.shape} {b.dtype}")
+        if name == "spikes/spike_mask":
+            out[name] = (float((a != b).mean()), SPIKE_FLIP_FRACTION)
+        elif b.dtype.kind != "f" or name.startswith("spectrometer/"):
+            same = np.array_equal(a, b, equal_nan=b.dtype.kind == "f")
+            out[name] = (0.0 if same else 1.0, 0.0)
+        elif name.startswith("vane/"):
+            d = np.abs(a - b) - VANE_RTOL * np.abs(b)
+            out[name] = (float(d.max() / max(np.abs(b).max(), 1e-30)),
+                         1e-6)
+        elif name == "atmosphere/fit_values":
+            el = want.get("spectrometer/pixel_pointing/pixel_el")
+            edges = want.get("averaged_tod/scan_edges")
+            if el is not None and edges is not None:
+                a = atmosphere_model(a, el, edges)
+                b = atmosphere_model(b, el, edges)
+            out[name] = (float(np.abs(a - b).max()
+                               / max(np.abs(b).max(), 1e-30)), ATMOS_RTOL)
+        elif name.endswith("fnoise_fit_parameters"):
+            edges = want.get("averaged_tod/scan_edges")
+            if not np.array_equal(np.isnan(a), np.isnan(b)) or \
+                    edges is None:
+                out[name] = (np.inf, 1.0)
+                continue
+            out[name] = (noise_fit_measure(
+                a, b, name.startswith("noise_statistics"), edges), 1.0)
+        else:
+            ok = ~np.isnan(b)
+            if not np.array_equal(np.isnan(a), ~ok):
+                out[name] = (np.inf, TOD_RTOL)
+                continue
+            out[name] = (float(np.abs(a[ok] - b[ok]).max(initial=0.0)
+                               / max(np.abs(b[ok]).max(initial=0.0),
+                                     1e-30)), TOD_RTOL)
+    return out
+
+
+def check_level2(got, want, label: str) -> dict:
+    """:func:`level2_diffs`, raising on the first dataset past its limit."""
+    diffs = level2_diffs(got, want)
+    bad = {k: v for k, v in diffs.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"{label}: Level-2 datasets past their limits "
+                             f"(measure, limit): {bad}")
+    return {k: v[0] for k, v in diffs.items()}
+
+
+def shipped_chain_config(root: str = ROOT) -> dict:
+    """The shipped field-reduction config with ``[resilience]`` and
+    ``[quality]`` set to what the port runs (no quarantine ledger, static
+    shard, no quality ledger)."""
+    from comapreduce_tpu_torch.pipeline import load_toml
+
+    cfg = load_toml(os.path.join(root, SHIPPED_CONFIG))
+    cfg["resilience"] = {"quarantine": "off", "lease_ttl_s": 0}
+    cfg["quality"] = {"enabled": False}
+    return cfg
+
+
+def pipeline_test_params():
+    """The observation of the reference's pipeline test
+    (``tests/test_pipeline.py:73-78``)."""
+    from comapreduce_tpu_torch.data.synthetic import SyntheticObsParams
+
+    return SyntheticObsParams(n_feeds=2, n_bands=2, n_channels=32,
+                              n_scans=3, scan_samples=600, vane_samples=250,
+                              seed=7)
+
+
+def level1_view(store):
+    """A :class:`COMAPLevel1` over an in-memory store's arrays."""
+    from comapreduce_tpu_torch.data.level import COMAPLevel1
+
+    return COMAPLevel1().adopt_payload({
+        "data": dict(store.items()),
+        "attrs": {k: dict(v) for k, v in store.attr_items()},
+        "source": ""})
+
+
+def memory_runner(device, config=None, on_stage=None):
+    """``Runner.from_config`` on the shipped config whose stage checkpoint
+    keeps the Level-2 store in memory (the card's machine has no h5py);
+    ``on_stage(lvl2)`` runs where the checkpoint would."""
+    from comapreduce_tpu_torch.pipeline import Runner
+
+    class MemoryRunner(Runner):
+        def _checkpoint(self, lvl2):
+            if on_stage is not None:
+                on_stage(lvl2)
+
+    cfg = config or shipped_chain_config()
+    cfg["Global"]["output_dir"] = os.path.join(ROOT, "chiprun_out",
+                                               "level2")
+    return MemoryRunner.from_config(cfg, device=device)
+
+
+def make_device_tod_class():
+    """The lazy full-width ``spectrometer/tod`` (a class built here, so the
+    module imports nothing of the port at import)."""
+    import torch
+
+    from comapreduce_tpu_torch.data.hdf5io import LazyDataset
+    from comapreduce_tpu_torch.data.synthetic import SAMPLE_RATE
+
+    class DeviceLevel1Tod(LazyDataset):
+        """``spectrometer/tod`` f32[F, B, C, T] of a synthetic observation
+        that no host could hold, generated on the card feed by feed from
+        ``(seed, feed)`` by the generator's physical model
+        (``data/synthetic.py``): ``G T_total (1 + dg) (1 + rms n)`` with the
+        vane load at the vane-flagged samples, the airmass term of each
+        feed's elevation, a 1/f gain stream ``dg`` and radiometer noise.
+        Reads ``[feed]`` and ``[..., s:e]`` copy to the host as numpy, like
+        an h5py dataset's; ``read_s`` sums their walls."""
+
+        def __init__(self, p, el, vane_flag, n_channels, device):
+            self.p = p
+            self.el = np.asarray(el)
+            self.vane = torch.as_tensor(np.asarray(vane_flag), device=device)
+            self.dev = torch.device(device)
+            self.shape = (p.n_feeds, p.n_bands, n_channels, self.el.shape[1])
+            self.dtype = np.dtype(np.float32)
+            self.read_s = 0.0
+            self.reads = 0
+
+        def _draws(self, f: int):
+            p = self.p
+            _, B, C, _ = self.shape
+            g = torch.Generator(device=self.dev)
+            g.manual_seed(p.seed * 1_000_003 + f)
+            gain = (p.gain_mean * (1.0 + p.gain_spread * torch.randn(
+                (B, C), generator=g, device=self.dev))).abs()
+            chan = torch.linspace(-1.0, 1.0, C, device=self.dev)
+            t_rx = p.t_rx * (1.0 + p.passband_curvature * chan ** 2
+                             + p.t_rx_scatter * torch.randn(
+                                 (B, C), generator=g, device=self.dev))
+            return g, gain, torch.clamp(t_rx, min=0.2 * p.t_rx)
+
+        def airmass(self, f: int) -> np.ndarray:
+            return 1.0 / np.sin(np.radians(self.el[f]))
+
+        def truth(self, f: int):
+            """(gain, tsys) f64[B, C] of feed ``f``."""
+            _, gain, t_rx = self._draws(f)
+            p = self.p
+            tsys = t_rx + p.t_cmb + p.t_atm_zenith * float(
+                self.airmass(f).mean())
+            return (gain.double().cpu().numpy(),
+                    tsys.double().cpu().numpy())
+
+        def feed(self, f: int):
+            """Feed ``f``'s counts f32[B, C, T] on the card."""
+            p = self.p
+            _, B, C, T = self.shape
+            g, gain, t_rx = self._draws(f)
+            w = torch.randn(T, generator=g, device=self.dev,
+                            dtype=torch.float64)
+            nu = torch.fft.rfftfreq(T, d=1.0 / SAMPLE_RATE, device=self.dev,
+                                    dtype=torch.float64)
+            shape = torch.sqrt(1.0 + (p.fknee / nu[1:]) ** p.alpha)
+            shape = torch.cat([shape.new_zeros(1), shape])
+            dg = (torch.fft.irfft(torch.fft.rfft(w) * shape, n=T)
+                  * p.sigma_g).float()
+            am = torch.as_tensor(self.airmass(f), device=self.dev).float()
+            t_sky = p.t_cmb + p.t_atm_zenith * am
+            load = torch.where(self.vane, torch.full_like(t_sky, p.t_vane),
+                               t_sky)
+            tod = t_rx[..., None] + load                # (B, C, T)
+            tod.mul_(gain[..., None]).mul_(1.0 + dg)
+            noise = torch.randn((B, C, T), generator=g, device=self.dev)
+            rms_frac = 1.0 / np.sqrt(2.0e9 / C / SAMPLE_RATE)
+            return tod.mul_(noise.mul_(rms_frac).add_(1.0))
+
+        def __getitem__(self, key):
+            t0 = time.perf_counter()
+            if isinstance(key, (int, np.integer)):
+                out = self.feed(int(key)).cpu().numpy()
+            elif (isinstance(key, tuple) and len(key) == 2
+                  and key[0] is Ellipsis and isinstance(key[1], slice)):
+                out = np.stack([self.feed(f)[..., key[1]].cpu().numpy()
+                                for f in range(self.shape[0])])
+            else:
+                raise IndexError(f"DeviceLevel1Tod reads [feed] and "
+                                 f"[..., s:e], not {key!r}")
+            self.read_s += time.perf_counter() - t0
+            self.reads += 1
+            return out
+
+    return DeviceLevel1Tod
+
+
+def full_width_level1(seed: int = 7):
+    """The full-width observation: F=19, B=4, C=1024, the flagship's 10 CES
+    scans of 13 500 samples (vane 256 at each end, gaps 64). The metadata
+    (features, pointing, MJD, housekeeping and the vane temperature) comes
+    from ``generate_level1_store`` at the full F and T with 2 channels;
+    ``frequency`` is rebuilt for 1024 channels and ``spectrometer/tod`` is
+    a :func:`make_device_tod_class` dataset."""
+    from comapreduce_tpu_torch.data.synthetic import (SyntheticObsParams,
+                                                      _band_frequencies,
+                                                      generate_level1_store)
+
+    C = 1024
+    p, meta = generate_level1_store(SyntheticObsParams(
+        n_feeds=19, n_bands=4, n_channels=2, n_scans=10, scan_samples=13_500,
+        vane_samples=256, gap_samples=64, seed=seed))
+    data = level1_view(meta)
+    data["spectrometer/frequency"] = _band_frequencies(p.n_bands, C)
+    tod = make_device_tod_class()(
+        p, meta["spectrometer/pixel_pointing/pixel_el"],
+        p.truth["vane_flag"], C, "cuda")
+    data["spectrometer/tod"] = tod
+    return p, data, tod
+
+
+def phase_chain_small():
+    """Phase E, small: the reference pipeline test's observation through
+    the shipped chain on the card and on the CPU, every Level-2 dataset
+    compared (:func:`level2_diffs`)."""
+    from comapreduce_tpu_torch.data.synthetic import generate_level1_store
+    from comapreduce_tpu_torch.ops.cuda_median import (
+        masked_fill, rolling_median_windows)
+
+    _, store = generate_level1_store(pipeline_test_params())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        masked_fill.launches = rolling_median_windows.launches = 0
+        runner = memory_runner(dev)
+        out[dev] = runner._run_file("comap-0000007.hd5",
+                                    data=level1_view(store))
+        if dev == "cuda":
+            launches = {"masked_fill": masked_fill.launches,
+                        "rolling_median_windows":
+                            rolling_median_windows.launches}
+    names = [n for n in ("spectrometer", "vane", "atmosphere",
+                         "averaged_tod", "spikes", "fnoise_fits",
+                         "noise_statistics")
+             if not out["cuda"].contains_groups([n])]
+    if names:
+        raise SystemExit(f"chain small: card run lacks groups {names}")
+    try:
+        diffs = check_level2(out["cuda"], out["cpu"], "chain small")
+    except AssertionError as err:
+        raise SystemExit(str(err))
+    # one scan chunk per feed (3 scans of 640 fit any budget): K1 and K2
+    # once per feed in the reduction, K2 once more in Spikes
+    F = 2
+    want = {"masked_fill": F, "rolling_median_windows": F + 1}
+    if launches != want:
+        raise SystemExit(f"chain small launches {launches}, not {want}")
+    line = {"max_diff": diffs, "launches": launches}
+    log("chain_small", json.dumps(line))
+    return line
+
+
+def _site_kernels(k_rows: int, L: int, mf_rows: int, window: int,
+                  spikes_shape, spikes_window: int):
+    """K1 and K2 at the stage chain's new sites, each bitwise against its
+    plain version on inputs drawn on the card, timed beside its bound and
+    the library call: K1 at the reduction's scan block (k B C rows of L),
+    K2 at the exact window-501 filter over the band means (k B rows of
+    L + 500) and at Spikes' window 101 over the averaged TOD (F B rows)."""
+    import torch
+
+    from comapreduce_tpu_torch.ops.cuda_median import (
+        masked_fill, masked_fill_plain, rolling_median_sorts,
+        rolling_median_windows, rolling_median_windows_plain)
+
+    dev = torch.device("cuda")
+    one = torch.empty(1, device=dev)
+    floor_ms = cuda_ms(lambda: one.zero_(), reps=50)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    sites = {}
+    tod = 4.5e7 * (1 + 0.01 * torch.randn((k_rows, L), generator=g,
+                                          device=dev))
+    mask = (torch.rand((k_rows, L), generator=g, device=dev) > 0.01).float()
+    mask[:, L - 68:] = 0.0          # the scan's padded tail
+    got = masked_fill(tod, mask)
+    want = masked_fill_plain(tod, mask)
+    torch.cuda.synchronize()
+    if not bits_equal(got, want):
+        raise SystemExit("K1 at the stage chain's scan block disagrees with "
+                         "its plain version")
+    b_ms, by = bound(3 * k_rows * L * 4, k_rows * (L + L // 4))
+    sites["masked_fill@reduce"] = dict(
+        shape=[k_rows, L], max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: masked_fill(tod, mask)),
+        plain_ms=cuda_ms(lambda: masked_fill_plain(tod, mask), reps=3,
+                         warm=1),
+        bound_ms=b_ms, bound_by=by, library_ms=None)
+    del tod, mask, got, want
+
+    def k2_site(name, rows, T, w, seed):
+        g.manual_seed(seed)
+        t = torch.arange(T + w - 1, device=dev, dtype=torch.float32)
+        x = (torch.sin(t / 300.0)[None, :] + 0.1 * torch.randn(
+            (rows, T + w - 1), generator=g, device=dev)).contiguous()
+        got = rolling_median_windows(x, w)
+        want = rolling_median_windows_plain(x, w)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise SystemExit(f"K2 at {name} disagrees with its plain "
+                             "version")
+        lib = torch.median(x.unfold(-1, w, 1), dim=-1).values
+        if not bits_equal(lib, want):
+            raise SystemExit(f"K2 at {name}: torch.median disagrees")
+        del lib
+        # bytes: read the padded rows, write the outputs; operations: at
+        # most one linear selection (a compare per window entry) per
+        # output
+        b_ms, by = bound(rows * (2 * T + w - 1) * 4, rows * T * w)
+        sites[name] = dict(
+            shape=[rows, T + w - 1], window=w,
+            sorted_body=rolling_median_sorts(w),
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms(lambda: rolling_median_windows(x, w)),
+            plain_ms=cuda_ms(lambda: rolling_median_windows_plain(x, w),
+                             reps=3, warm=1),
+            bound_ms=b_ms, bound_by=by, launch_floor_ms=floor_ms,
+            library_ms=cuda_ms(
+                lambda: torch.median(x.unfold(-1, w, 1), dim=-1),
+                reps=3, warm=1),
+            library="torch.median on an unfold view (odd window: the "
+                    "same function)")
+
+    k2_site("rolling_median_windows@medfilt501", mf_rows, L, window, 19)
+    k2_site("rolling_median_windows@spikes101", spikes_shape[0],
+            spikes_shape[1], spikes_window, 23)
+    log("chain_sites", json.dumps(sites))
+    return sites
+
+
+def phase_chain_full():
+    """Phase E, full width: the shipped chain over the full-width
+    observation on the card, with every product checked, the launches of
+    K1 and K2 counted against the code's derivation, per-stage walls
+    (reads apart), the planner's choice and estimate beside the measured
+    peak, and K1 and K2 timed at the chain's shapes."""
+    import torch
+
+    from comapreduce_tpu_torch.ops.cuda_median import (
+        masked_fill, rolling_median_windows)
+    from comapreduce_tpu_torch.ops.reduce import (device_hbm_bytes,
+                                                  estimate_reduce_hbm,
+                                                  plan_reduce_memory,
+                                                  scan_starts_lengths)
+    from comapreduce_tpu_torch.pipeline.stages import mean_vane_tsys_gain
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p, data, tod = full_width_level1()
+    setup_s = time.perf_counter() - t0
+    # two reads of one feed give the same bytes
+    a, b = tod[3], tod[3]
+    if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+        raise SystemExit("chain full: two reads of feed 3 differ")
+    del a, b
+    tod.read_s, tod.reads = 0.0, 0
+    F, B, C, T = tod.shape
+    edges = np.asarray(data.scan_edges)
+    S = len(edges)
+    _, _, L = scan_starts_lengths(edges)
+    cfg = shipped_chain_config()
+    fb = int(cfg["Level1AveragingGainCorrection"]["feed_batch"])
+    hbm = device_hbm_bytes(device="cuda")
+    k = plan_reduce_memory(fb, B, C, T, S, L, None, hbm_bytes=hbm)
+    k_eff = S if k is None else k
+    estimate = estimate_reduce_hbm(fb, B, C, T, S, L, scan_batch=k)
+
+    stages = []
+    counters = (masked_fill, rolling_median_windows)
+
+    def on_stage(lvl2):
+        torch.cuda.synchronize()
+        name = list(runner.timings)[-1]
+        prev = stages[-1] if stages else {"read_s": 0.0, "reads": 0,
+                                          "k1": 0, "k2": 0}
+        done = {"read_s": tod.read_s, "reads": tod.reads,
+                "k1": masked_fill.launches,
+                "k2": rolling_median_windows.launches}
+        stages.append(dict(
+            done, stage=name, wall_s=runner.timings[name][-1],
+            stage_read_s=done["read_s"] - prev["read_s"],
+            stage_reads=done["reads"] - prev["reads"],
+            k1_launches=done["k1"] - prev["k1"],
+            k2_launches=done["k2"] - prev["k2"],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            base_gib=base[0] / 2**30))
+        base[0] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    runner = memory_runner("cuda", cfg, on_stage)
+    base = [torch.cuda.memory_allocated()]
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    lvl2 = runner._run_file("comap-fullwidth.hd5", data=data)
+    chain_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    walls = {s["stage"]: s for s in stages}
+    want_groups = ("spectrometer", "vane", "atmosphere", "averaged_tod",
+                   "spikes", "fnoise_fits", "noise_statistics")
+    missing = [g for g in want_groups if not lvl2.contains_groups([g])]
+    if missing:
+        raise SystemExit(f"chain full: no {missing} (stages run: "
+                         f"{list(walls)})")
+    for name in lvl2.keys():
+        v = np.asarray(lvl2[name])
+        if name.endswith("fnoise_fit_parameters"):
+            v = v[~np.isnan(v[..., 0])]
+            if not v.size:
+                raise SystemExit(f"chain full: no fitted scan in {name}")
+        if v.dtype.kind == "f" and not np.isfinite(v).all():
+            raise SystemExit(f"chain full: non-finite values in {name}")
+    # the vane recovers the generator's truth (tests/test_pipeline.py)
+    tsys, gain = mean_vane_tsys_gain(lvl2)
+    truth = [tod.truth(f) for f in range(F)]
+    g_true = np.stack([t[0] for t in truth])
+    t_true = np.stack([t[1] for t in truth])
+    ok = tsys > 0
+    rel_g = float(np.median(np.abs(gain - g_true)[ok] / g_true[ok]))
+    rel_t = float(np.median(np.abs(tsys - t_true)[ok] / t_true[ok]))
+    if not (ok.mean() > 0.9 and rel_g < 0.05 and rel_t < 0.10):
+        raise SystemExit(f"chain full: vane calibrated {ok.mean():.3f} of "
+                         f"channels, median gain error {rel_g}, Tsys "
+                         f"error {rel_t}")
+    avg = np.asarray(lvl2["averaged_tod/tod"])
+    in_scan = np.zeros(T, bool)
+    for s, e in edges:
+        in_scan[s:e] = True
+    if np.abs(avg[..., ~in_scan]).max() != 0.0 or \
+            not (avg[..., in_scan] != 0).mean() > 0.99:
+        raise SystemExit("chain full: averaged TOD not zero outside scans "
+                         "and non-zero inside them")
+    spike_share = float(np.asarray(lvl2["spikes/spike_mask"]).mean())
+    if not spike_share < 0.5:
+        raise SystemExit(f"chain full: {spike_share} of samples flagged")
+    for grp in ("fnoise_fits", "noise_statistics"):
+        par = np.asarray(lvl2[f"{grp}/fnoise_fit_parameters"])
+        sig2 = par[..., 0][~np.isnan(par[..., 0])]
+        if not (sig2 > 0).all():
+            raise SystemExit(f"chain full: {grp} white levels not > 0")
+    # K1 and K2 once per scan chunk of each feed in the reduction, K2
+    # once more in Spikes
+    chunks = -(-S // k_eff)
+    want = {"masked_fill": F * chunks,
+            "rolling_median_windows": F * chunks + 1}
+    if launches != want:
+        raise SystemExit(f"chain full launches {launches}, not {want}")
+    red = walls["Level1AveragingGainCorrection"]
+    window = min(int(cfg["Level1AveragingGainCorrection"]["medfilt_window"]),
+                 L)
+    spikes_w = int(cfg["Spikes"]["window"])
+    sites = _site_kernels(k_eff * B * C, L, k_eff * B, window, (F * B, T),
+                          spikes_w)
+    line = {
+        "shape": [F, B, C, T], "n_scans": S, "L": L,
+        "setup_s": setup_s, "chain_s": chain_s,
+        "read_s": tod.read_s, "reads": tod.reads,
+        "stages": [{k: s[k] for k in ("stage", "wall_s", "stage_read_s",
+                                      "stage_reads", "k1_launches",
+                                      "k2_launches", "peak_gib",
+                                      "base_gib")} for s in stages],
+        "launches": launches, "device_hbm_bytes": hbm,
+        "feed_batch": fb, "scan_batch_planned": k,
+        "estimate_reduce_hbm_gib": estimate / 2**30,
+        "reduce_peak_gib": red["peak_gib"],
+        "reduce_peak_above_base_gib": red["peak_gib"] - red["base_gib"],
+        "vane_median_rel_err": {"gain": rel_g, "tsys": rel_t},
+        "spike_share": spike_share, "sites": sites,
+    }
+    log("chain_full", json.dumps({k: v for k, v in line.items()
+                                  if k != "sites"}))
+    return line
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     env = phase_environment()
@@ -1932,6 +2555,8 @@ def main() -> int:
     report["joint_products"] = phase_joint_products(stage_log, bands_1f,
                                                     hand_joint)
     del bands_1f, hand_joint
+    report["chain_small"] = phase_chain_small()
+    report["chain_full"] = phase_chain_full()
     launches["windowed_gather"] = field_launches["windowed_gather"]
     report["field_launches"] = field_launches
     report["mg_field_launches"] = mg_launches

@@ -1,6 +1,7 @@
 """State carried across from the reference package: the pointing plan, the
 reduction config, the two-level coarse system, the multigrid hierarchy,
-the banded noise prior and the destriper's flat inputs.
+the banded noise prior, the destriper's flat inputs, Level-1 / Level-2
+stores and the campaign shape policy.
 
 The port has no weights; what it must share with ``comapreduce_tpu`` to
 be held against it is state. These helpers take the reference's numpy
@@ -13,16 +14,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from comapreduce_tpu_torch.data.hdf5io import is_lazy
+from comapreduce_tpu_torch.data.level import COMAPLevel1, COMAPLevel2
 from comapreduce_tpu_torch.mapmaking.leveldata import DestriperData
 from comapreduce_tpu_torch.mapmaking.pixel_space import PixelSpace
 from comapreduce_tpu_torch.mapmaking.pointing_plan import PointingPlan
 from comapreduce_tpu_torch.mapmaking.wcs import WCS
-from comapreduce_tpu_torch.ops.reduce import ReduceConfig
+from comapreduce_tpu_torch.ops.reduce import ReduceConfig, ShapeBuckets
 
 __all__ = ["PLAN_ARRAY_FIELDS", "PLAN_STATIC_FIELDS", "plan_from_reference",
            "plan_arrays", "reduce_config_from_reference",
            "coarse_from_reference", "multigrid_from_reference",
-           "banded_from_reference", "destriper_data_from_reference"]
+           "banded_from_reference", "destriper_data_from_reference",
+           "level1_from_reference", "level2_from_reference",
+           "shape_buckets_from_reference"]
 
 PLAN_ARRAY_FIELDS = ("uniq_pixels", "sample_perm", "sample_pair",
                      "sample_base", "pair_rank", "pair_offset", "rank_base",
@@ -129,3 +134,35 @@ def destriper_data_from_reference(ref) -> DestriperData:
                          pixel_space=space,
                          groups=[dict(g) for g in getattr(ref, "groups",
                                                           None) or []])
+
+
+def _store_payload(store) -> dict:
+    """The ``export_payload`` snapshot of any store with the reference's
+    mapping API: dict structure copied, arrays shared, lazy datasets
+    read in full (the reference store itself is left as it is)."""
+    return {"data": {k: (v[...] if is_lazy(v) else v)
+                     for k, v in store.items()},
+            "attrs": {k: dict(v) for k, v in store.attr_items()},
+            "source": store.source_filename}
+
+
+def level1_from_reference(store) -> COMAPLevel1:
+    """The port's :class:`COMAPLevel1` holding a reference Level-1
+    store's datasets and attributes, bitwise (through the payload)."""
+    return COMAPLevel1().adopt_payload(_store_payload(store))
+
+
+def level2_from_reference(store) -> COMAPLevel2:
+    """The port's :class:`COMAPLevel2` holding a reference Level-2
+    store's datasets and attributes, bitwise, under the same
+    ``filename``."""
+    lvl2 = COMAPLevel2(filename="").adopt_payload(_store_payload(store))
+    lvl2.filename = getattr(store, "filename", "")
+    return lvl2
+
+
+def shape_buckets_from_reference(buckets) -> ShapeBuckets:
+    """The port's :class:`ShapeBuckets` with a reference policy's
+    quanta."""
+    return ShapeBuckets(int(buckets.t_quantum), int(buckets.scan_quantum),
+                        int(buckets.l_quantum))

@@ -1,7 +1,7 @@
 """Artifact integrity: sha256 sidecars and verify-on-read (the sidecar
 half of ``comapreduce_tpu/resilience/integrity.py``, copied so that each
 package verifies the other's artifacts; the reference's embedded JSON
-seals and ``refresh_sidecar`` are not ported).
+seals are not ported).
 
 A durable artifact (here: the solver's ``.npz`` snapshots) is committed
 with a sidecar manifest ``<name>.s256``, a small JSON document next to
@@ -38,7 +38,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "CorruptArtifactError", "verify_enabled", "sha256_path",
     "sidecar_path", "read_sidecar", "write_sidecar",
-    "committed_replace", "drop_sidecar", "verify_file",
+    "committed_replace", "refresh_sidecar", "drop_sidecar", "verify_file",
 ]
 
 #: suffix of sidecar manifests (``map_band0.fits`` → ``map_band0.fits.s256``)
@@ -168,6 +168,18 @@ def committed_replace(tmp: str, dst: str, kind: str,
     payload + new sidecar via history, or new payload + new sidecar)."""
     write_sidecar(tmp, dst, kind, durable=durable)
     _durable.durable_replace(tmp, dst, durable=durable)
+
+
+def refresh_sidecar(dst: str, kind: str = "",
+                    durable: bool = False) -> None:
+    """Re-seal an artifact mutated in place (an in-place HDF5 append):
+    rewrites only an existing sidecar, so a stale manifest never
+    condemns honestly-updated bytes (``integrity.py:207``)."""
+    prev = read_sidecar(dst)
+    if prev is None:
+        return
+    write_sidecar(dst, dst, kind or str(prev.get("kind", "")),
+                  durable=durable)
 
 
 def drop_sidecar(path: str) -> None:
