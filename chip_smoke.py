@@ -15,9 +15,11 @@ Phases, in order; any failure exits non-zero and no result is printed:
    versions on the card, at the shapes the full-width paths give them —
    K3 at its three sites on the flagship plan (4 bands) and on the field
    plan (one band), K4 with the ground solve's two coefficient rows
-   (R = 2) and with one (R = 1) — (K1, K2 and K4 bitwise; K3 bitwise on
+   (R = 2) and with one (R = 1), and K3 once more with its ids shuffled
+   inside each chunk — (K1, K2 and K4 bitwise; K3 bitwise on
    integer-valued sums and, on real values, within the f32 summation
-   bound of the exact sum), each timed on the device with CUDA events
+   bound of the exact sum, and three launches on the same inputs the
+   same bits), each timed on the device with CUDA events
    (``cuda_ms``) beside its plain version, its bound and the one PyTorch
    call that computes the same function where there is one
    (``torch.quantile`` on an unfold view for K2, ``index_add_`` for K3,
@@ -58,12 +60,14 @@ Phases, in order; any failure exits non-zero and no result is printed:
    the banded + multigrid offsets-only solve on the matched-1/f variant
    and a compensated solve, and ``precise_dot`` against a float64 dot at
    the field's offset and sample counts; at full width, phase A — the
-   four bands through ``solve_band`` with the ground template and
-   ``fieldrun.MG_KW``, each with the K3 and K4 counters set to 0 just
+   first two bands (``FIELD_MG_BANDS``) through ``solve_band`` with the
+   ground template and ``fieldrun.MG_KW``, each with the K3 and K4
+   counters set to 0 just
    before its solve and read just after (K4 once per CG iteration, K3 as
    ``k3_launches`` derives), phase C — one more such band under
-   ``torch.profiler`` (K3, K4, ``index_add_``, ``index_select`` and the
-   coarsest ``einsum``, and the solve's busy share), and phase B — the
+   ``torch.profiler`` (K3, K4, the V-cycle's segment sums,
+   ``index_select`` and the coarsest ``einsum``, and the solve's busy
+   share), and phase B — the
    four matched-1/f bands offsets-only, band 0 through ``solve_band``
    with the banded prior (its fallback warning must name the two planted
    groups) and then all four as one multi-RHS ``destripe_planned`` with
@@ -197,7 +201,7 @@ Phases, in order; any failure exits non-zero and no result is printed:
    card publishes a cold epoch over one file, a warm epoch over both
    (strictly fewer CG iterations than a cold one-shot server over both,
    the same map modulo the offsets' constant), a ``downdated`` epoch
-   after evicting the second file (its tiles epoch 1's where its map is),
+   after evicting the second file (every tile epoch 1's, byte for byte),
    each cut into tiles; the cold one-shot against a batch
    ``read_comap_data`` + ``solve_band``; a loopback ``TileServer``
    cutout bit-identical to the epoch FITS and revalidated (304) across a
@@ -233,17 +237,15 @@ Phases, in order; any failure exits non-zero and no result is printed:
    of that store on the ground route (K3, K4), untraced twice and traced
    once with telemetry on: an ``iteration`` record per reported CG
    iteration and one ``solve`` record with the result's ``n_iter`` and
-   residual, the traced and untraced solves within ``TRACE_ATOL`` of one
-   another (offsets and null-space-invariant products; ten times the
-   card's largest measured run-to-run gap) with the same hits, then a
-   checkpointed solve in two chunks
+   residual, the traced and untraced solves the same bits (offsets,
+   ground, hits, weights and maps), then a checkpointed solve in two
+   chunks
    numbered on one iteration axis; M.2 phase F's joint route through
    ``main`` with ``[Telemetry] enabled`` and ``--live-port=0`` while a
    scraper thread polls ``/metrics`` and ``/healthz`` (a mid-run scrape
    with the reads' span family and the ``solver.*`` gauges), then a
-   healthy ``/v1/campaign``, phase F's hits, NAIVE maps within K3's
-   summation rule of phase F's and DESTRIPED maps within ``TRACE_ATOL``,
-   and ``campaign_report`` over the state dir; M.3
+   healthy ``/v1/campaign``, phase F's hits, NAIVE and DESTRIPED maps
+   bitwise phase F's, and ``campaign_report`` over the state dir; M.3
    ``[telemetry] jax_profiler`` through ``Runner.run_tod`` over two
    ``synth://`` members at L.1's widths: one ``torch.profiler`` trace
    under ``<log_dir>/jax_trace/`` naming K1's and K2's CUDA symbols as
@@ -288,7 +290,8 @@ SPIN_CYCLES = 20_000_000
 # reduced TOD and weights are f32-conditioned by the gain solve's
 # ``zpp = p^T Z p`` (~400x below ``|p|^2``): reductions summed in another
 # order (cuBLAS / CUB on the card) move them by a few 1e-4 of scale;
-# the maps inherit less, and K3's atomics add f32 summation order
+# the maps inherit less, and K3's fixed order (not the CPU's) adds f32
+# summation order
 TOD_RTOL = 2e-3
 MAP_ATOL = 5e-4
 # f32 unit roundoff, for K3's summation bound (check_window_sum)
@@ -370,14 +373,15 @@ def bits_equal(a, b) -> bool:
 
 
 def check_window_sum(label, vals, ids, base, window, chunk, out_size):
-    """Hold K3 against its plain version on the card in the two ways a
-    float atomic order cannot blur; return max |kernel - plain| and the
-    most terms any bin sums.
+    """Hold K3 against its plain version on the card in the two ways no
+    order of f32 adds can blur, and against itself over three launches;
+    return max |kernel - plain| and the most terms any bin sums.
 
-    Both run atomics on the card (``index_add_`` too), so their sums move
-    in the last bits from run to run, and more so in a bin of many terms
-    (the plan's padding samples all land on one padded pair): no fixed
-    share of the output's scale bounds that. Instead:
+    The kernel adds in its own fixed order (per chunk, then chunks in
+    order) and the plain version in ``index_add_``'s (atomics on the
+    card), so they differ in the last bits, and more so in a bin of many
+    terms (the plan's padding samples all land on one padded pair): no
+    fixed share of the output's scale bounds that. Instead:
 
     - routing, exactly: with integer values of magnitude at most k, where
       k * (the most terms any bin sums) < 2**24 (k = 2 where that allows),
@@ -388,7 +392,9 @@ def check_window_sum(label, vals, ids, base, window, chunk, out_size):
       n terms lies within gamma(n-1) * sum|x| of the exact sum, with
       gamma(k) = k u / (1 - k u) (Higham, *Accuracy and Stability of
       Numerical Algorithms*, eq. 4.6). The exact sum is taken in f64,
-      whose own error is 2**29 times smaller.
+      whose own error is 2**29 times smaller;
+    - itself, exactly: three launches on the same inputs give the same
+      bits (its order is fixed by the inputs and the launch).
     """
     import torch
 
@@ -413,6 +419,10 @@ def check_window_sum(label, vals, ids, base, window, chunk, out_size):
         raise SystemExit(f"K3 {label}: integer-valued sums differ from "
                          "the plain version")
     got = binned_window_sum(vals, *args)
+    for i in (2, 3):
+        if not bits_equal(binned_window_sum(vals, *args), got):
+            raise SystemExit(f"K3 {label}: launch {i} on the same inputs "
+                             "gave other bits than launch 1")
     want = binned_window_sum_plain(vals, *args)
     exact = binned_window_sum_plain(vals.double(), *args)
     abs_sum = binned_window_sum_plain(vals.abs().double(), *args)
@@ -576,9 +586,13 @@ def _k3_layouts(plan, dev):
 def k3_sites(plan, R: int, g, prefix: str = "") -> dict:
     """K3 at the planned destriper's three call sites of ``plan`` with
     ``R`` right-hand sides of random values: each held to its plain
-    version (``check_window_sum``) and timed beside it, its bound and
-    ``index_add_`` into a staging column on ids pre-masked to the plan's
-    windows (the one PyTorch call computing the same function)."""
+    version and to itself over three launches (``check_window_sum``) and
+    timed beside it, its bound and ``index_add_`` into a staging column
+    on ids pre-masked to the plan's windows (the one PyTorch call
+    computing the same function). ``bound_ms`` counts the bytes the
+    function must move; ``partial_bound_ms`` adds the kernel's partial
+    buffer (R x n_chunks x window f32, written by its first pass and
+    read by its second)."""
     import torch
 
     from comapreduce_tpu_torch.mapmaking.cuda_binning import (
@@ -604,8 +618,11 @@ def k3_sites(plan, R: int, g, prefix: str = "") -> dict:
                 vals, ids, base, window, chunk, out_size), reps=5),
             library_ms=cuda_ms(lambda: stage.index_add_(1, dest, vals),
                                reps=20))
+        n_bytes = (R * M + M + M // chunk + R * out_size) * 4
         sites[site]["bound_ms"], sites[site]["bound_by"] = bound(
-            (R * M + M + M // chunk + R * out_size) * 4, R * n_valid)
+            n_bytes, R * n_valid)
+        sites[site]["partial_bound_ms"] = bound(
+            n_bytes + 2 * R * (M // chunk) * window * 4, R * n_valid)[0]
         del vals, dest, stage
     return sites
 
@@ -756,7 +773,8 @@ def phase_kernel_parity(plan, full, field_plan):
     import torch
 
     from comapreduce_tpu_torch.mapmaking.cuda_binning import (
-        binned_window_sum_occupancy, windowed_gather_occupancy)
+        binned_window_sum, binned_window_sum_occupancy,
+        windowed_gather_occupancy)
     from comapreduce_tpu_torch.ops.cuda_median import (
         RM_OUT, fill_row_on_chip, masked_fill, masked_fill_occupancy,
         masked_fill_plain, rolling_median_occupancy, rolling_median_sorts,
@@ -889,6 +907,24 @@ def phase_kernel_parity(plan, full, field_plan):
     for prefix, pl, R in (("", plan, B), ("field_", field_plan, 1),
                           ("field4_", field_plan, B)):
         sites.update(k3_sites(pl, R, g, prefix))
+    # the contract holds for ids in any order inside a chunk: the
+    # flagship's pair sum with its ids (and values) shuffled per chunk
+    ids, base, window, chunk, out_size, M = _k3_layouts(
+        plan, dev)["pair_sum"]
+    perm = (torch.argsort(torch.rand((M // chunk, chunk), generator=g,
+                                     device=dev), dim=1)
+            + torch.arange(0, M, chunk, device=dev)[:, None]).reshape(-1)
+    vals = torch.randn((B, M), generator=g, device=dev)
+    err, n_max = check_window_sum("shuffled pair_sum", vals[:, perm],
+                                  ids[perm].contiguous(), base, window,
+                                  chunk, out_size)
+    sites["pair_sum_shuffled"] = dict(
+        R=B, M=M, out_size=out_size, window=window, chunk=chunk,
+        max_abs_err=err, max_terms_per_bin=n_max,
+        ms=cuda_ms(lambda: binned_window_sum(
+            vals[:, perm].contiguous(), ids[perm].contiguous(), base,
+            window, chunk, out_size), reps=10))
+    del vals, perm
     head = sites["rank_sum"]
     entries["binned_window_sum"] = dict(
         name="binned_window_sum", route="cuda",
@@ -899,9 +935,11 @@ def phase_kernel_parity(plan, full, field_plan):
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         library_ms=head["library_ms"], headline_site="rank_sum",
         sites=sites)
+    entries["binned_window_sum"]["partial_bound_ms"] = \
+        head["partial_bound_ms"]
     (entries["binned_window_sum"]["blocks_per_sm"],
-     entries["binned_window_sum"]["elements_per_block"]) = \
-        binned_window_sum_occupancy()
+     entries["binned_window_sum"]["elements_per_pass"]) = \
+        binned_window_sum_occupancy(B, plan.rank_window)
     # K4 at its one call site, the ground solve's offset-order gather of
     # its two per-offset coefficient rows c0, c1 in one launch (R = 2,
     # S = n_off, M = P_pad) on the full field plan; beside it one row
@@ -1083,6 +1121,11 @@ def phase_full_chain(full, plan):
     return line, launches, inputs
 
 
+# K3's two kernels (its partial pass and its output pass) share this
+# prefix: a profile counts two kernel launches a K3 launch
+K3_SYMBOL = "binned_window_"
+
+
 def kernel_share(kernels, name: str, busy_ms: float) -> dict:
     """In-loop device time of one kernel from a profile's CUDA events:
     total ms, launches, ms per launch and share of all kernel time."""
@@ -1119,7 +1162,7 @@ def phase_profile(inputs, plan, top: int = 15):
                  "k1": kernel_share(kernels, "masked_fill_kernel", busy_ms),
                  "k2": kernel_share(kernels, "rolling_median_kernel",
                                     busy_ms),
-                 "k3": kernel_share(kernels, "binned_window_sum_kernel",
+                 "k3": kernel_share(kernels, K3_SYMBOL,
                                     busy_ms),
                  "top_kernels": rows}
     log("profile", json.dumps({k: v for k, v in prof_line.items()
@@ -1347,7 +1390,7 @@ def phase_field_profile(data, stage_log, top: int = 12):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k3 = kernel_share(kernels, "binned_window_sum_kernel", busy_ms)
+    k3 = kernel_share(kernels, K3_SYMBOL, busy_ms)
     k4 = kernel_share(kernels, "windowed_gather_kernel", busy_ms)
     solve_s = wall - stage_log.seconds("coarse_pattern") - stage_log.seconds(
         "coarse_build")
@@ -1494,8 +1537,15 @@ def phase_small_mg_banded():
     return out
 
 
+# phase A's depth: the first bands of the full field run under the
+# V-cycle (phase 7 solves all four with the two-level preconditioner),
+# so the script keeps to its budget
+FIELD_MG_BANDS = 2
+
+
 def phase_field_mg(geo, plan, stage_log, twolevel_bands):
-    """Phase A: all four bands of the full field run through ``solve_band``
+    """Phase A: the first ``FIELD_MG_BANDS`` bands of the full field run
+    through ``solve_band``
     with the ground template and the multigrid V-cycle (``fieldrun.MG_KW``),
     100 iterations, threshold 1e-6, each with the K3 and K4 counters set
     to 0 just before its solve and read just after. Checks those of the
@@ -1521,7 +1571,7 @@ def phase_field_mg(geo, plan, stage_log, twolevel_bands):
                 "windowed_gather": windowed_gather}
     bands, total = [], {k: 0 for k in counters}
     keep = None
-    for band in range(sh.n_bands):
+    for band in range(FIELD_MG_BANDS):
         t0 = time.perf_counter()
         data, truth = make_field_band(sh, geo, band)
         gen_s = time.perf_counter() - t0
@@ -1731,7 +1781,7 @@ def phase_joint_products(stage_log, bands, hand):
        divergence, the memoised plan and multigrid patterns reused, and
        the maps (mean-removed on hit pixels) and iteration count against
        phase B's hand-written joint solve ``hand`` (FIELD_ATOL of scale,
-       3 iterations: K3's atomics change the summation order). The solve
+       3 iterations: the two solves sum in other orders). The solve
        wall is the one the watchdog recorded (synchronised), beside the
        host build wall and the peak device memory.
     2. ``write_band_map`` of the four WCS products into
@@ -2044,8 +2094,9 @@ def phase_joint_products(stage_log, bands, hand):
 def phase_field_mg_profile(data, stage_log, top: int = 15):
     """Phase C: one band of phase A under ``torch.profiler``: K3 and K4
     per launch and as a share of device time, the device time under
-    ``index_add_`` (the V-cycle's restrictions and COO applies and the
-    group sums), ``index_select`` and ``einsum`` (the coarsest solve),
+    ``segment_reduce`` and ``sum`` (the V-cycle's fixed-order restrictions
+    and COO applies and the group sums, ``ops.segment``),
+    ``index_select`` and ``einsum`` (the coarsest solve),
     and the device's busy share of the solve (the host builds
     excluded)."""
     import torch
@@ -2067,7 +2118,7 @@ def phase_field_mg_profile(data, stage_log, top: int = 15):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     ops = {}
     for e in events:
-        if e.key in ("aten::index_add_", "aten::einsum",
+        if e.key in ("aten::segment_reduce", "aten::sum", "aten::einsum",
                      "aten::index_select"):
             ops[e.key] = {"device_ms": e.device_time_total / 1e3,
                           "calls": e.count,
@@ -2079,7 +2130,7 @@ def phase_field_mg_profile(data, stage_log, top: int = 15):
     out = {"profiled_wall_s": wall, "profiled_solve_s": solve_s,
            "cg_iters": int(res.n_iter), "device_kernel_ms": busy_ms,
            "device_busy_share_of_solve": busy_ms / 1e3 / solve_s,
-           "k3": kernel_share(kernels, "binned_window_sum_kernel", busy_ms),
+           "k3": kernel_share(kernels, K3_SYMBOL, busy_ms),
            "k4": kernel_share(kernels, "windowed_gather_kernel", busy_ms),
            "ops": ops,
            "top_kernels": [{"kernel": e.key[:120],
@@ -3445,7 +3496,7 @@ def phase_reader_small(store, stage_log):
             raise SystemExit(f"reader small band {b}: hit maps differ")
         # the sky maps against the destriped map's scale; the weight map
         # (sums of 1/sigma^2, thousands) against its own largest value:
-        # K3's atomics add its terms in another order, a few ulp of it
+        # K3 adds its terms in another order than the CPU, a few ulp of it
         scale = max(float(np.nanstd(w["DESTRIPED"])), 1.0)
         for k in diff:
             ref = float(np.abs(w[k]).max()) if k == "WEIGHTS" else scale
@@ -5217,10 +5268,11 @@ SERVE_NAMES = ("Level2_serve-A.hd5", "Level2_serve-B.hd5")
 SERVE_KW = dict(band=0, offset_length=50, n_iter=100, threshold=1e-6,
                 coarse_block=8, medfilt_window=READER_WINDOW, tile_px=64)
 # two maps of one census solved to that threshold by different routes
-# (the cold one-shot against the batch solve on the card, where K3 adds
-# with atomics; the warm epoch against the cold one, modulo the offsets'
-# constant): phase F's map tolerance, MAP_ATOL of max(nanstd, 1). The
-# CPU rehearsal at SMALL_FIELD measured 4.1e-4 warm against cold there
+# (the cold one-shot against the batch solve, assembled from per-file
+# aggregates against one read; the warm epoch against the cold one,
+# modulo the offsets' constant): phase F's map tolerance, MAP_ATOL of
+# max(nanstd, 1). The CPU rehearsal at SMALL_FIELD measured 4.1e-4 warm
+# against cold there
 SERVE_ATOL = MAP_ATOL
 
 
@@ -5296,12 +5348,12 @@ def phase_serving(store, stage_log=None, device: str = "cuda",
 
     Checks: every file in exactly one epoch's ``new_files`` (both roots);
     the cold one-shot against the batch solve within ``SERVE_ATOL`` of
-    phase F's scale (bitwise on the CPU: on the card K3 adds with
-    atomics); the warm epoch strictly fewer CG iterations than the cold
-    one-shot and the same map modulo the offsets' constant within
-    ``SERVE_ATOL``; epoch 3's tiles byte-identical to epoch 1's where its
-    map is epoch 1's bit for bit (always on the CPU), else the same tile
-    set and map within ``SERVE_ATOL``; the cutout bit-identical to
+    phase F's scale (bitwise on the CPU); the warm epoch strictly fewer
+    CG iterations than the cold one-shot and the same map modulo the
+    offsets' constant within
+    ``SERVE_ATOL``; epoch 3's tiles byte-identical to epoch 1's, all of
+    them (its census is epoch 1's, and the card's sums keep one order);
+    the cutout bit-identical to
     a slice of the epoch FITS; the evicted file not re-admitted; the
     co-add finite, its hits epoch 1's. Launches: K1 and K4 none, K2 one
     per file read, K3 as :func:`k3_launches` derives from each planned
@@ -5471,8 +5523,9 @@ def phase_serving(store, stage_log=None, device: str = "cuda",
     t1, t3 = ts.manifest(1)["tiles"], ts.manifest(3)["tiles"]
     map3_bitwise = all(m1[k].tobytes() == m3[k].tobytes() for k in m1)
     same_tiles = sum(t1[k][0] == t3.get(k, [None])[0] for k in t1)
-    if sorted(t1) != sorted(t3) or (map3_bitwise or not on_card) and \
-            same_tiles != len(t1):
+    # unchanged tiles keep their content hash (tiles/tiler.py): epoch 3
+    # solves epoch 1's census again, and every sum adds in a fixed order
+    if sorted(t1) != sorted(t3) or same_tiles != len(t1):
         raise SystemExit(f"serving: epoch 3's tiles {same_tiles} of "
                          f"{len(t1)} epoch 1's (map bitwise {map3_bitwise})")
     tile_gap = _map_gap(m3, m1)
@@ -5574,8 +5627,8 @@ def phase_serving(store, stage_log=None, device: str = "cuda",
 
 SYNTH_DIR = os.path.join(ROOT, "chiprun_out", "synthetic")
 # L.1, the transfer artifact on the card against the CPU's: the chain's
-# reductions sum in another order on the card and K3's atomics reorder the
-# solve's sums, so the artifact moves in its last digits. Limits, about
+# reductions and K3 sum in other orders on the card than on the CPU, so
+# the artifact moves in its last digits. Limits, about
 # ten times the largest gap measured on an H100 (two runs of the phase,
 # the same gaps in both): the gated low-k bins within TRANSFER_GATED_ATOL
 # (measured 1.09e-5) and the map gain too (8.5e-6); every bin within
@@ -5993,25 +6046,11 @@ def phase_synthetic() -> dict:
 
 # Phase M: the observability plane on the card. M.1 traces the ground
 # route of band 0; the trace only writes three history entries an
-# iteration and computes nothing the solve reads (on the CPU, where the
-# sums keep one order, traced and untraced solves agree bit for bit), but
-# K3's atomics reorder the solve's sums from run to run, and this
-# unconverged ground solve (100 iterations, residual ~7e-3) carries that
-# rounding along its weak slope <-> sky-gradient mode, where one solve
-# now and then lands far from the rest, traced or not. Measured on an
-# H100 (700 W) by trace_spread.py over 120 pairs of 16 alternating
-# solves: the pairs' largest gaps (offsets, slopes, mean-removed
-# baselines and map) have medians 0.8e-6 to 4.9e-6 in every class (two
-# untraced, two traced, one of each) and reach 2.58e-5, so twice one
-# pair's gap is no bound: replayed over those solves it fails 59% of
-# draws (and twice the largest of four untraced solves' gaps, against the
-# traced solve's median gap to them, 28%). The card's limit between any
-# two solves of this band is TRACE_ATOL, about six times the largest gap
-# measured; the untraced pair and the traced solve against each untraced
-# one are held to it, and their ratios to the untraced pair's spread are
-# reported.
+# iteration and computes nothing the solve reads, and every sum of the
+# solve (K3, the ground groups, the coarse restriction) adds in an order
+# fixed by its inputs, so the traced and untraced solves are the same
+# bits, on the card as on the CPU.
 OBS_DIR = os.path.join(ROOT, "chiprun_out", "observability")
-TRACE_ATOL = 1.5e-4
 TRACE_UNTRACED = 2
 # M.1's checkpointed solve: two chunks of this many Jacobi iterations at
 # an unreachable threshold, so both chunks run whole
@@ -6143,24 +6182,15 @@ class LiveScraper:
             raise self.error
 
 
-def _trimmed(data, L: int):
-    """``data``'s ground groups over its first whole offsets (what the
-    solve keeps), for ``fieldrun.invariants``."""
-    n = (int(np.size(data.tod)) // L) * L
-    return dataclasses.replace(data, ground_ids=np.asarray(
-        data.ground_ids[:n]))
+SOLVE_PRODUCTS = ("offsets", "ground", "hit_map", "weight_map",
+                  "naive_map", "destriped_map")
 
 
-def _solve_gaps(a, b, data, L: int) -> dict:
-    """max |a - b| of two ground solves' offsets and null-space-invariant
-    products (``fieldrun.invariants``: slopes, mean-removed baselines and
-    mean-removed destriped map on hit pixels)."""
-    from comapreduce_tpu_torch.fieldrun import invariants
-
-    ia, ib = invariants(a, data, L), invariants(b, data, L)
-    gaps = {k: float(np.abs(ia[k] - ib[k]).max()) for k in ia}
-    gaps["offsets"] = float((a.offsets - b.offsets).abs().max())
-    return gaps
+def _same_solve(a, b) -> dict:
+    """Whether two band solves gave the same bits, product by product
+    (offsets, ground template, hits and maps)."""
+    return {k: bits_equal(getattr(a, k).float(), getattr(b, k).float())
+            for k in SOLVE_PRODUCTS}
 
 
 def phase_solver_trace(store, device: str = "cuda", field=SHIPPED_FIELD,
@@ -6173,10 +6203,9 @@ def phase_solver_trace(store, device: str = "cuda", field=SHIPPED_FIELD,
     then traced with telemetry on (``trace_iters=None``: depth
     ``niter``). The trace: one ``iteration`` record per iteration the
     result reports and one ``solve`` record with its ``n_iter`` and
-    residual. The untraced solves' gap (offsets and invariants) is the
-    run-to-run spread; it and the traced solve's gap to each untraced one
-    lie within ``TRACE_ATOL``, with the same hits, and every solve
-    launches K3 and K4 as the ground solve derives
+    residual. The untraced solves are the same bits, and the traced solve
+    the same bits as them (offsets, ground, hits and maps), and every
+    solve launches K3 and K4 as the ground solve derives
     (:func:`k3_launches`). Then a
     checkpointed Jacobi solve in two chunks of ``TRACE_CHUNK``: its
     records number iterations 0..2 x TRACE_CHUNK - 1 on one axis, bases
@@ -6252,19 +6281,13 @@ def phase_solver_trace(store, device: str = "cuda", field=SHIPPED_FIELD,
         if int(res.n_iter) != k or (on_card and n != want):
             raise SystemExit(f"solver trace solve {i}: {int(res.n_iter)} "
                              f"iterations, launches {n}, derived {want}")
-    cut = _trimmed(data, L)
-    pairs = [_solve_gaps(a[0], b[0], cut, L) for i, a in enumerate(untraced)
-             for b in untraced[i + 1:]]
-    spread = {q: max(p[q] for p in pairs) for q in pairs[0]}
-    to_untraced = [_solve_gaps(tr, u[0], cut, L) for u in untraced]
-    gap = {q: max(g[q] for g in to_untraced) for q in spread}
-    same_hits = all(torch.equal(tr.hit_map, u[0].hit_map)
-                    for u in untraced)
-    if not same_hits or any(max(gap[q], spread[q]) > TRACE_ATOL
-                            for q in gap):
-        raise SystemExit(f"solver trace: traced against untraced {gap}, "
-                         f"untraced spread {spread}, limit {TRACE_ATOL}; "
-                         f"hits equal {same_hits}")
+    same = {"untraced": [_same_solve(a[0], b[0])
+                         for i, a in enumerate(untraced)
+                         for b in untraced[i + 1:]],
+            "traced": [_same_solve(tr, u[0]) for u in untraced]}
+    if not all(all(d.values()) for v in same.values() for d in v):
+        raise SystemExit(f"solver trace: solves of one band not the same "
+                         f"bits: {same}")
     c_its = [r["iter"] for r in chunked if r["kind"] == "iteration"]
     c_bases = [r["base"] for r in chunked if r["kind"] == "solve"]
     if c_its != list(range(2 * TRACE_CHUNK)) or \
@@ -6276,10 +6299,7 @@ def phase_solver_trace(store, device: str = "cuda", field=SHIPPED_FIELD,
     line = {"n_iter": k, "residual": float(tr.residual),
             "walls_s": {"untraced": u_walls, "traced": tr_s},
             "trace_overhead_s": tr_s - float(np.median(u_walls)),
-            "spread": spread, "traced_gap": gap, "limit": TRACE_ATOL,
-            "traced_over_spread": {q: gap[q] / spread[q] if spread[q]
-                                   else None for q in gap},
-            "traced_gaps": to_untraced,
+            "bitwise": same,
             "launches": {"read": read_n,
                          "untraced": {fn: sum(u[2][fn] for u in untraced)
                                       for fn in want},
@@ -6340,12 +6360,10 @@ def phase_live_plane(store, joint_maps=None, untraced_wall=None,
     ``/v1/campaign`` healthy and ``/healthz`` 200; one trace stream per
     band with an iteration record per reported iteration; the maps have
     ``joint_maps``' hits (phase F's untraced run; computed here, untraced,
-    when ``None``), their NAIVE maps lie within :func:`naive_limit` of
-    them and their mean-removed DESTRIPED maps on hit pixels within
-    ``TRACE_ATOL`` (the two runs differ only in the card's summation
-    order; M.1 measures how far that moves a solve of this field run to
-    run, and the joint route's converged solve moves its maps less than
-    the ground route's 100 unconverged iterations); ``campaign_report``
+    when ``None``), and their NAIVE and DESTRIPED maps are the same bits
+    (the trace computes nothing the solve reads and the card's sums keep
+    one order; the NAIVE maps' gap against :func:`naive_limit`, the
+    bound an order-free sum would need, is reported); ``campaign_report``
     merges the
     state dir into its summary, Chrome trace and Prometheus file. Prints
     the traced and untraced walls and their ratio (not gated: host walls
@@ -6450,17 +6468,17 @@ def phase_live_plane(store, joint_maps=None, untraced_wall=None,
                and r["kind"] == "iteration"]
         naive_gap = np.abs(m["NAIVE"] - ref["NAIVE"])
         naive_lim = naive_limit(datas[b], L)
-        d, r = m["DESTRIPED"][hit], ref["DESTRIPED"][hit]
-        d_gap = float(np.abs((d - d.mean()) - (r - r.mean())).max())
-        d_lim = TRACE_ATOL
+        d = m["DESTRIPED"][hit]
+        same = {k: m[k].tobytes() == ref[k].tobytes()
+                for k in ("NAIVE", "DESTRIPED")}
         row = {"band": b, "n_iter": w["n_iter"], "records": len(its),
                "naive_max_gap": float(naive_gap[hit].max()),
                "naive_max_excess": float((naive_gap - naive_lim)[hit].max()),
-               "destriped_gap": d_gap, "destriped_limit": d_lim}
+               "bitwise": same}
         bands.append(row)
         if not np.array_equal(m["HITS"], ref["HITS"]) or \
                 len(its) != w["n_iter"] or row["naive_max_excess"] > 0 \
-                or d_gap > d_lim or not np.isfinite(d).all():
+                or not all(same.values()) or not np.isfinite(d).all():
             raise SystemExit(f"live plane band {b}: {row}; hits equal "
                              f"{np.array_equal(m['HITS'], ref['HITS'])}")
     buf = io.StringIO()
@@ -6683,63 +6701,91 @@ def main() -> int:
     port_log = logging.getLogger("comapreduce_tpu_torch")
     port_log.setLevel(logging.INFO)
     port_log.addHandler(stage_log)
+    # each phase's wall, lap by lap (a report key and a log line each)
+    walls, t_lap = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"wall {name} {walls[name]:.1f} s")
+
     # the small field runs first: solve_band's plan memo holds one
     # pointing, and the full field's plan must stay in it for its bands
     report["small_field"] = phase_small_field()
+    lap("small_field")
     report["small_mg_banded"] = phase_small_mg_banded()
+    lap("small_mg_banded")
     geo, field_plan, report["field_setup"] = phase_field_setup(stage_log)
     kernels = phase_kernel_parity(plan, FULL, field_plan)
+    lap("kernel_parity")
     report["large_paths"] = phase_large_paths()
+    lap("large_paths")
     report["small_chain"] = phase_small_chain()
+    lap("small_chain")
     report["full_chain"], launches, inputs = phase_full_chain(FULL, plan)
     report["profile"] = phase_profile(inputs, plan)
+    lap("full_chain_and_profile")
     del inputs
     report["field"], field_launches, band0 = phase_field(geo, field_plan,
                                                          stage_log)
     report["field_profile"] = phase_field_profile(band0, stage_log)
+    lap("field_7")
     del band0
     report["mg_field"], mg_launches, band0 = phase_field_mg(
         geo, field_plan, stage_log, report["field"])
     report["mg_field_profile"] = phase_field_mg_profile(band0, stage_log)
+    lap("field_A_C")
     del band0
     report["banded_field"], bands_1f, hand_joint = phase_field_banded(
         geo, field_plan, stage_log)
     report["joint_products"] = phase_joint_products(stage_log, bands_1f,
                                                     hand_joint)
+    lap("field_B_D")
     del bands_1f, hand_joint
     report["chain_small"], store_small = phase_chain_small()
     report["chain_full"], store_full = phase_chain_full()
+    lap("chain_E")
     # phase I.1 straight after phase E, in one process: the order in which
     # a chunk of all 19 feeds once failed to allocate
     t0 = time.perf_counter()
     ingest_chain = phase_ingest_chain(store_full,
                                       report["chain_full"]["launches"])
     ingest_chain["phase_s"] = time.perf_counter() - t0
+    lap("ingest_I1")
     t0 = time.perf_counter()
     report["reader_small"] = phase_reader_small(store_small, stage_log)
     report["reader_full"], joint_maps = phase_reader_full(
         store_full, stage_log, os.path.join(ROOT, "chiprun_out",
                                             "chain_full", "logs"))
     report["reader_s"] = time.perf_counter() - t0
+    lap("reader_F")
     t0 = time.perf_counter()
     report["calibration_small"] = phase_calibration_small()
     report["calibration_full"], cal_store = phase_calibration_full(
         store_full, "comap-fullwidth.hd5", joint_maps, stage_log)
     report["calibration_s"] = time.perf_counter() - t0
+    lap("calibration_H")
     t0 = time.perf_counter()
     report["ingest"] = dict(phase_ingest(store_full, cal_store, joint_maps,
                                          stage_log), chain=ingest_chain)
     report["ingest_s"] = time.perf_counter() - t0
+    lap("ingest_I")
     del store_small, cal_store
     t0 = time.perf_counter()
     report["drill"] = phase_drill()
     report["drill_s"] = time.perf_counter() - t0
+    lap("drill_G")
     report["last_stages"] = phase_last_stages()
+    lap("last_stages_J")
     report["serving"] = phase_serving(store_full, stage_log)
+    lap("serving_K")
     report["observability"] = phase_observability(
         store_full, joint_maps, report["reader_full"]["joint"]["wall_s"])
     del store_full, joint_maps
+    lap("observability_M")
     report["synthetic"] = phase_synthetic()
+    lap("synthetic_L")
     launches["windowed_gather"] = field_launches["windowed_gather"]
     report["field_launches"] = field_launches
     report["mg_field_launches"] = mg_launches
@@ -6747,6 +6793,7 @@ def main() -> int:
         v["launches"] = launches[k]
         v["phase_m_launches"] = report["observability"]["launches"][k]
     report["kernels"] = list(kernels.values())
+    report["phase_walls_s"] = walls
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json"),
               "w") as fh:

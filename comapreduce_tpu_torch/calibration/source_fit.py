@@ -7,7 +7,8 @@ ephemerides), the pointing rotated into source-relative tangent-plane
 coordinates, the Level-2 TOD high-passed by a rolling median (K2 on the
 card: one launch over every (feed, band) row) and binned into one small
 map per (feed, band) with the port's ``accumulate_weights``/``bin_map``
-(every map of the observation in one ``index_add_``), then a rotated
+(every map of the observation in one segment sum over one pixel stream,
+in a fixed order on the card), then a rotated
 2-D Gaussian fitted to all maps as one batch
 (:mod:`comapreduce_tpu_torch.calibration.fitting`).
 
@@ -26,7 +27,7 @@ import torch
 from comapreduce_tpu_torch.astro import coordinates as coords
 from comapreduce_tpu_torch.calibration import fitting
 from comapreduce_tpu_torch.mapmaking.binning import (accumulate_weights,
-                                                     bin_map)
+                                                     bin_map, pixel_stream)
 from comapreduce_tpu_torch.mapmaking.wcs import WCS
 from comapreduce_tpu_torch.ops.median_filter import rolling_median
 from comapreduce_tpu_torch.pipeline.registry import register
@@ -58,7 +59,8 @@ def bin_source_maps(tod: torch.Tensor, weights: torch.Tensor, dx, dy,
     # outside the field stays -1, the drop slot of every map
     base = (np.arange(F * B, dtype=np.int64) * npix).reshape(F, B, 1)
     ids = np.where(pix[:, None, :] >= 0, pix[:, None, :] + base, -1)
-    ids = torch.as_tensor(ids.reshape(-1), device=tod.device)
+    ids = pixel_stream(torch.as_tensor(ids.reshape(-1), device=tod.device),
+                       F * B * npix)
     w = weights.reshape(-1)
     sw = accumulate_weights(ids, w, F * B * npix)
     maps = bin_map(hp.reshape(-1), ids, w, F * B * npix, sum_w=sw)

@@ -118,7 +118,8 @@ def cmd_check(args) -> int:
           f"{rep['n_expired_leases']} expired lease(s)"
           + (", STUCK supervisor" if stuck else "")
           + (f", {n_corrupt} CORRUPT artifact(s)/line(s) — run "
-             "tools/campaign_fsck.py" if n_corrupt else "")
+             "python -m comapreduce_tpu_torch.cli.campaign_fsck"
+             if n_corrupt else "")
           + f" ({rep['output_dir']})")
     return 0 if ok else 1
 

@@ -67,11 +67,17 @@ solve's per-iteration trace (``solver.rank0.jsonl``, with the
 observability sidecar (:class:`~comapreduce_tpu_torch.telemetry.live.
 LiveServer`) over the state directory while the run goes on.
 
+``[Control] solver_policy`` re-picks the preconditioner rung from this
+state directory's solver traces and the run registry
+(:func:`~comapreduce_tpu_torch.control.policy.choose_solver`, every
+override an auditable ``control.decision``); its program-cost and
+``[Tuning]`` sources are not ported.
+
 Not ported (``NotImplementedError``, naming the knob): ``sharded``;
 ``kernels`` other than ``auto`` (they select TPU implementations); and in
 :func:`main` more than one rank (``COMAP_NRANKS``), ``[Inputs]
-compile_cache_dir`` (XLA's persistent compilation cache), ``[Tuning]``
-and ``[Control]``. The rules are those of
+compile_cache_dir`` (XLA's persistent compilation cache) and
+``[Tuning]``. The rules are those of
 :func:`~comapreduce_tpu_torch.pipeline.runner.unported_knobs`, the INI
 sections mapped onto its tables.
 """
@@ -90,6 +96,7 @@ import numpy as np
 import torch
 
 from comapreduce_tpu_torch._device import resolve_device
+from comapreduce_tpu_torch.control.config import ControlConfig
 from comapreduce_tpu_torch.mapmaking import healpix as hp
 from comapreduce_tpu_torch.mapmaking.destriper import (
     MultigridUnavailable, _check_precond, build_coarse_preconditioner,
@@ -992,7 +999,7 @@ def _aslist(v):
 
 # the INI sections whose knobs runner.unported_knobs judges, and the
 # table each maps onto; [Inputs] is mixed, so only its ingest knobs go
-_INI_TABLES = {"control": "Control", "tuning": "Tuning"}
+_INI_TABLES = {"tuning": "Tuning"}
 
 
 def _unported_ini(ini) -> list[str]:
@@ -1066,7 +1073,7 @@ def main(argv=None, device=None) -> int:
     if bad:
         raise NotImplementedError(
             "not ported: " + ", ".join(bad) + " (the port runs without "
-            "XLA's compile_cache_dir, [Tuning] or [Control])")
+            "XLA's compile_cache_dir or [Tuning])")
     dev = resolve_device(device)
     filelist = read_filelist(inputs["filelist"])
     out_dir = inputs.get("output_dir", ".")
@@ -1137,6 +1144,57 @@ def main(argv=None, device=None) -> int:
     state_dir = str(inputs.get("log_dir", "") or
                     os.path.join(out_dir, "logs"))
     os.makedirs(state_dir, exist_ok=True)
+    # [Control] solver_policy (default off): re-pick the preconditioner
+    # rung from evidence — this state dir's solver traces and the
+    # run-registry iteration delta — instead of trusting the static
+    # [Destriper] knobs (run_destriper.py:1461). Every override is an
+    # auditable control.decision event; no evidence leaves the static
+    # config byte-for-byte. Rung evidence is folded per shape bucket:
+    # only solves stamped with this run's offset-length bucket argue
+    # its rungs.
+    control_cfg = ControlConfig.coerce(dict(ini.get("Control", {}))
+                                       or None)
+    if control_cfg.solver_policy:
+        from comapreduce_tpu_torch.control.policy import choose_solver
+        from comapreduce_tpu_torch.telemetry.registry import \
+            default_registry_path
+
+        # the effective rung the decisions are measured against (the
+        # parse collapses twolevel/multigrid into flags)
+        rung = ("multigrid" if mg is not None
+                else "twolevel" if coarse_block > 0
+                else precond)
+        choice = choose_solver(
+            state_dir,
+            static={"preconditioner": rung,
+                    "mg_block": mg["block"] if mg else None,
+                    "pair_batch": pair_batch,
+                    "offset_length": offset_length},
+            registry_path=default_registry_path(),
+            bucket=f"L={offset_length}")
+        for reason in choice.get("reasons", ()):
+            logger.warning("[Control] solver_policy: %s", reason)
+        overrides = {k: v for k, v in choice.items() if k != "reasons"}
+        if overrides:
+            # apply by re-parsing an overridden copy of [Destriper] so
+            # every knob validation (mg ranges, coarse_block gating)
+            # governs the policy's picks too
+            destr_over = dict(destr_sec)
+            new_rung = str(overrides.get("preconditioner", rung))
+            destr_over["preconditioner"] = new_rung
+            if new_rung != "twolevel":
+                destr_over.pop("coarse_block", None)
+            if new_rung != "multigrid":
+                for k in ("mg_levels", "mg_smooth", "mg_block"):
+                    destr_over.pop(k, None)
+            elif "mg_block" in overrides:
+                destr_over["mg_block"] = int(overrides["mg_block"])
+            if "pair_batch" in overrides:
+                destr_over["pair_batch"] = int(overrides["pair_batch"])
+            precond, coarse_block, pair_batch, mg, kernels, \
+                noise_weight = parse_destriper_section(
+                    destr_over, int(inputs.get("coarse_precond",
+                                               0 if calibrator else 8)))
     # [Telemetry]: this rank's event stream beside the leases and
     # heartbeats, so the map-maker's spans and solver traces merge with
     # a reduction campaign's

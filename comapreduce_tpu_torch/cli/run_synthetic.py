@@ -15,9 +15,13 @@ identical ``([scenario], seed)``, the reference's bytes. ``transfer``
 runs the stages, the reader and the solve on ``--device`` (the card
 unless ``--device cpu``) and writes the ``transfer.json`` artifact; with
 ``--check`` it also runs the machine-independent closure gate (non-zero
-exit on a broken criterion). ``drill``, the scale drill, needs
-``synthetic/loadgen``, ``telemetry/live`` and ``resilience/drill``,
-which are not ported: it raises ``NotImplementedError``.
+exit on a broken criterion). ``drill`` runs the synthetic scale drill
+(:func:`~comapreduce_tpu_torch.synthetic.loadgen.run_synthetic_drill`:
+three elastic worker processes, a rank killed and rejoined, a map
+server and a live sidecar under load) on ``--device`` and prints its
+evidence as one JSON line::
+
+    run_synthetic drill --workdir drill/ --n-files 200 [--device cpu]
 """
 
 from __future__ import annotations
@@ -73,10 +77,17 @@ def _cmd_transfer(args) -> int:
 
 
 def _cmd_drill(args) -> int:
-    raise NotImplementedError(
-        "run_synthetic drill: the synthetic scale drill needs "
-        "synthetic/loadgen, telemetry/live and resilience/drill, which "
-        "are not ported")
+    from comapreduce_tpu_torch.synthetic.loadgen import run_synthetic_drill
+
+    try:
+        evidence = run_synthetic_drill(args.workdir, seed=args.seed,
+                                       n_files=args.n_files,
+                                       ttl_s=args.ttl, device=args.device)
+    except AssertionError as exc:
+        print(json.dumps({"ok": False, "criterion": str(exc)}))
+        return 1
+    print(json.dumps({"ok": True, **evidence}))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -104,13 +115,16 @@ def main(argv=None) -> int:
                         "versions)")
     t.set_defaults(fn=_cmd_transfer)
 
-    d = sub.add_parser("drill", help="the synthetic scale drill (not "
-                                     "ported)")
+    d = sub.add_parser("drill", help="the synthetic scale drill")
     d.add_argument("--workdir", required=True)
     d.add_argument("--seed", type=int, default=0)
     d.add_argument("--n-files", type=int, default=200)
     d.add_argument("--ttl", type=float, default=2.0,
                    help="lease TTL (s) for the elastic ranks")
+    d.add_argument("--device", default=None,
+                   help="torch device of the workers' stages and the map "
+                        "server (default: the card; 'cpu' runs the plain "
+                        "versions)")
     d.set_defaults(fn=_cmd_drill)
 
     args = ap.parse_args(argv)

@@ -155,7 +155,8 @@ def render_text(rep: dict) -> str:
     if rep.get("n_corrupt_ledger_lines"):
         lines.append(f"{rep['n_corrupt_ledger_lines']} ledger line(s) "
                      "dropped for failing their integrity seal — run "
-                     "tools/campaign_fsck.py (docs/OPERATIONS.md §20)")
+                     "python -m comapreduce_tpu_torch.cli.campaign_fsck "
+                     "(docs/OPERATIONS.md §20)")
     return "\n".join(lines)
 
 

@@ -6,16 +6,20 @@ Port of ``comapreduce_tpu/mapmaking/pallas_binning.py``:
 ``pointing_plan``, where the reference defines it) replaces
 ``binned_window_sum_pallas`` (``pallas_binning.py:204``, body
 ``_scatter_kernel`` ``:173``). Bound: bytes — values R x M f32 and ids
-M i32 read once, out R x out_size f32 written once. Design: the grid
-tiles the element axis (independent of the plan's chunk); a thread sums
-its runs of equal in-window ids in registers, a warp joins runs across
-its lanes with a segmented scan keyed on the id, and only the lane
-holding a run's end adds it to device memory with one atomic per band —
-the plan's ids are sorted, so runs are long (the TPU kernel relied on an
-ordered grid for race freedom; CUDA blocks run concurrently). One body
-serves every window width: nothing is sized to the window. Float
-atomics change the summation order from run to run, so the kernel
-agrees with the plain version to f32 summation-order tolerance.
+M i32 read once, out R x out_size f32 written once, its partial buffer
+(R x n_chunks x window f32) written and read once. Design: two passes
+that add in an order fixed by the inputs, so a sum is the same bits on
+every run (the TPU kernel's ordered grid gave it one order; CUDA blocks
+run concurrently, so float atomics would not). Pass 1, one block a
+chunk: a thread sums its runs of equal in-window ids in registers, a
+warp joins runs across its lanes with a segmented scan keyed on the id,
+and the warps add their runs one after the other into the chunk's window
+in shared memory, which the block writes to its partial row (a window
+wider than the shared slice is done slice by slice). Pass 2, one thread
+a bin: the partial entries of the chunks whose windows cover the bin,
+added in chunk order. Correct for ids in any order; sorted ids make the
+runs long. Against the ordered plain version the kernel agrees to f32
+summation-order tolerance.
 
 Dispatch follows the tensor's device: a CUDA tensor launches the
 kernel or raises, a CPU tensor takes the plain version. The TPU's VMEM
@@ -110,22 +114,28 @@ def binned_window_sum(values: torch.Tensor, ids: torch.Tensor,
     lead = values.shape[:-1]
     v = values.contiguous().reshape(-1, M)
     R = v.shape[0]
-    out = torch.zeros((R, out_size), dtype=torch.float32,
+    if M == 0 or R == 0 or out_size == 0 or window <= 0:
+        return torch.zeros(lead + (out_size,), dtype=torch.float32,
+                           device=values.device)
+    # pass 2 writes every bin
+    out = torch.empty((R, out_size), dtype=torch.float32,
                       device=values.device)
-    if M == 0 or R == 0 or out_size == 0:
-        return out.reshape(lead + (out_size,))
     i32 = ids.to(torch.int32).contiguous()
     b32 = base.to(torch.int32).contiguous()
+    # the chunks' window sums (pass 1) and the flag of unsorted bases
+    partial = torch.empty(R * (M // chunk) * int(window),
+                          dtype=torch.float32, device=values.device)
+    flag = torch.empty(1, dtype=torch.int32, device=values.device)
     # 16-byte loads of ids and of each band's values
-    vec = (M % 4 == 0 and v.data_ptr() % 16 == 0
+    vec = (M % 4 == 0 and chunk % 4 == 0 and v.data_ptr() % 16 == 0
            and i32.data_ptr() % 16 == 0)
     fn = _build.c_function("binned_window_sum", "cr_binned_window_sum",
-                           [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I,
-                            _VP])
+                           [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I,
+                            _I, _I, _VP])
     binned_window_sum.launches += 1
     _build.check(fn(v.data_ptr(), i32.data_ptr(), b32.data_ptr(),
-                    out.data_ptr(), M, R, int(window), int(chunk),
-                    int(out_size), int(vec),
+                    out.data_ptr(), partial.data_ptr(), flag.data_ptr(), M,
+                    R, int(window), int(chunk), int(out_size), int(vec),
                     torch.cuda.current_stream().cuda_stream),
                  "binned_window_sum")
     return out.reshape(lead + (out_size,))
@@ -134,17 +144,19 @@ def binned_window_sum(values: torch.Tensor, ids: torch.Tensor,
 binned_window_sum.launches = 0
 
 
-def binned_window_sum_occupancy() -> tuple[int, int]:
-    """``(blocks per SM, elements per block)`` of the K3 launch on the
-    current card: its resident blocks per SM, as the CUDA occupancy API
-    gives them, and the elements of ``ids`` one block takes."""
+def binned_window_sum_occupancy(R: int = 1,
+                                window: int = 4096) -> tuple[int, int]:
+    """``(blocks per SM, elements per pass)`` of K3's first pass at ``R``
+    bands and ``window`` bins on the current card: its resident blocks per
+    SM, as the CUDA occupancy API gives them for that shared window, and
+    the elements of a chunk one block takes per pass over it."""
     fn = _build.c_function("binned_window_sum",
-                           "cr_binned_window_sum_occupancy", [_VP])
-    per_block = ctypes.c_int(0)
-    n = fn(ctypes.byref(per_block))
+                           "cr_binned_window_sum_occupancy", [_I, _I, _VP])
+    per_pass = ctypes.c_int(0)
+    n = fn(int(R), int(window), ctypes.byref(per_pass))
     if n < 0:
         _build.check(-n, "binned_window_sum occupancy")
-    return n, per_block.value
+    return n, per_pass.value
 
 
 def windowed_gather_plain(src: torch.Tensor, ids: torch.Tensor,

@@ -48,12 +48,14 @@ import torch.nn.functional as F
 
 from comapreduce_tpu_torch.mapmaking.binning import (accumulate_weights,
                                                      bin_map, naive_map,
+                                                     pixel_stream,
                                                      sample_map)
 from comapreduce_tpu_torch.mapmaking.cuda_binning import windowed_gather
 from comapreduce_tpu_torch.mapmaking.pixel_space import resolve_npix
 from comapreduce_tpu_torch.mapmaking.pointing_plan import (PointingPlan,
                                                            binned_window_sum)
 from comapreduce_tpu_torch.ops.precision import precise_dot
+from comapreduce_tpu_torch.ops.segment import plan_segments, segment_sums
 from comapreduce_tpu_torch.resilience.integrity import (
     CorruptArtifactError, committed_replace, drop_sidecar, verify_file)
 from comapreduce_tpu_torch.resilience.tripwires import scrub_tod
@@ -381,15 +383,14 @@ def _expand(offsets, ground, ground_ids, az, offset_length):
     return d
 
 
-def _reduce(wr, ground_ids, az, n_offsets, offset_length, n_groups):
-    """The adjoint: TOD -> (per-offset sums, per-group ``[sum, sum az]``)."""
+def _reduce(wr, g_plan, az, n_offsets, offset_length):
+    """The adjoint: TOD -> (per-offset sums, per-group ``[sum, sum az]``,
+    the groups' sums in the fixed order of ``g_plan``)."""
     a = wr.reshape(n_offsets, offset_length).sum(dim=1)
-    if ground_ids is None:
+    if g_plan is None:
         return a, None
-    def seg(v):
-        return torch.zeros(n_groups, dtype=wr.dtype,
-                           device=wr.device).index_add_(0, ground_ids, v)
-    return a, torch.stack([seg(wr), seg(wr * az)], dim=-1)
+    return a, torch.stack([segment_sums(wr, g_plan),
+                           segment_sums(wr * az, g_plan)], dim=-1)
 
 
 def _dot(x, y):
@@ -435,9 +436,13 @@ def destripe(tod: torch.Tensor, pixels: torch.Tensor, weights: torch.Tensor,
     n_offsets = n // offset_length
     npix = resolve_npix(npix)
     with_ground = ground_ids is not None
+    g_plan = None
     if with_ground:
         ground_ids = ground_ids.to(torch.int64)
+        g_plan = plan_segments(ground_ids, n_groups, one_launch=True)
     tod, weights = scrub_tod(tod, weights)
+    # the stream's sums planned once, outside the CG loop
+    pixels = pixel_stream(pixels, npix)
     sum_w = accumulate_weights(pixels, weights, npix)
 
     def z_map(d):
@@ -447,11 +452,9 @@ def destripe(tod: torch.Tensor, pixels: torch.Tensor, weights: torch.Tensor,
     def matvec(x):
         offs, grd = x
         d = _expand(offs, grd, ground_ids, az, offset_length)
-        return _reduce(z_map(d), ground_ids, az, n_offsets, offset_length,
-                       n_groups)
+        return _reduce(z_map(d), g_plan, az, n_offsets, offset_length)
 
-    b = _reduce(z_map(tod), ground_ids, az, n_offsets, offset_length,
-                n_groups)
+    b = _reduce(z_map(tod), g_plan, az, n_offsets, offset_length)
 
     if precond == "none":
         precond_fn = None
@@ -761,21 +764,27 @@ def _vcycle_precond(mg, matvec, inv_diag, mg_smooth: int, omega: float,
 
     At each level: pre-smooth from zero (the first damped-Jacobi step is
     ``x = omega D^-1 r`` exactly, no matvec), restrict the residual to the
-    next level's blocks with ``index_add_`` (exact Galerkin), recurse (the
-    coarsest level is one product with its dense inverse), prolong by
-    ``index_select`` and post-smooth ``nu`` times. Level operators below
-    the fine one are their COO triplets, applied as one gather, multiply
-    and ``index_add_``. Leading band axes of the hierarchy broadcast."""
+    next level's blocks (exact Galerkin), recurse (the coarsest level is
+    one product with its dense inverse), prolong by ``index_select`` and
+    post-smooth ``nu`` times. Level operators below the fine one are
+    their COO triplets, applied as one gather, multiply and segment sum
+    over the rows. Every sum adds in a fixed order
+    (:func:`~comapreduce_tpu_torch.ops.segment.segment_sums`, planned here
+    once). Leading band axes of the hierarchy broadcast."""
     nu = max(int(mg_smooth), 1)
     levels = []
     for lv in mg:
         t = {"grp": torch.as_tensor(np.asarray(lv["grp"]), device=dev).to(
             torch.int64)}
+        n_next = np.asarray(lv["ac_inv"] if "ac_inv" in lv
+                            else lv["invd"]).shape[-1]
+        t["grp_plan"] = plan_segments(lv["grp"], n_next, one_launch=True)
         if "ac_inv" in lv:
             t["ac_inv"] = torch.as_tensor(lv["ac_inv"], dtype=dt, device=dev)
         else:
-            t["rows"] = torch.as_tensor(np.asarray(lv["rows"]),
-                                        device=dev).to(torch.int64)
+            t["rows_plan"] = plan_segments(
+                lv["rows"], np.asarray(lv["invd"]).shape[-1],
+                one_launch=True)
             t["cols"] = torch.as_tensor(np.asarray(lv["cols"]),
                                         device=dev).to(torch.int64)
             t["vals"] = torch.as_tensor(lv["vals"], dtype=dt, device=dev)
@@ -785,13 +794,7 @@ def _vcycle_precond(mg, matvec, inv_diag, mg_smooth: int, omega: float,
     def coo_apply(lv, x):
         # A_k x over the level's triplets; bands broadcast through
         contrib = lv["vals"] * torch.index_select(x, -1, lv["cols"])
-        n_k = lv["invd"].shape[-1]
-        return torch.zeros(contrib.shape[:-1] + (n_k,), dtype=dt,
-                           device=dev).index_add_(-1, lv["rows"], contrib)
-
-    def restrict(grp, res, n_next):
-        return torch.zeros(res.shape[:-1] + (n_next,), dtype=dt,
-                           device=dev).index_add_(-1, grp, res)
+        return segment_sums(contrib, lv["rows_plan"])
 
     def vcycle(idx, r, apply_a, invd):
         x = omega * invd * r
@@ -800,10 +803,10 @@ def _vcycle_precond(mg, matvec, inv_diag, mg_smooth: int, omega: float,
         lv = levels[idx]
         res = r - apply_a(x)
         if "ac_inv" in lv:            # coarsest: the dense ridged inverse
-            rc = restrict(lv["grp"], res, lv["ac_inv"].shape[-1])
+            rc = segment_sums(res, lv["grp_plan"])
             ec = torch.einsum("...ij,...j->...i", lv["ac_inv"], rc)
         else:
-            rc = restrict(lv["grp"], res, lv["invd"].shape[-1])
+            rc = segment_sums(res, lv["grp_plan"])
             ec = vcycle(idx + 1, rc, lambda v, lv=lv: coo_apply(lv, v),
                         lv["invd"])
         x = x + torch.index_select(ec, -1, lv["grp"])
@@ -1006,13 +1009,14 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
             c_grp = torch.as_tensor(coarse[0], device=dev).to(torch.int64)
             ac_inv = torch.as_tensor(coarse[1], dtype=dt, device=dev)
             n_c = ac_inv.shape[-1]
+            # the restriction's sums in a fixed order, planned once
+            c_plan = plan_segments(coarse[0], n_c, one_launch=True)
 
             def apply_precond(v):
                 # additive two-level: Jacobi + the coarse-grid correction
                 # (sum to blocks, small dense solve as a product, gather
                 # back)
-                rc = torch.zeros(v.shape[:-1] + (n_c,), dtype=dt,
-                                 device=dev).index_add_(-1, c_grp, v)
+                rc = segment_sums(v, c_plan)
                 cc = torch.einsum("...ij,...j->...i", ac_inv, rc)
                 return v * inv_diag + torch.index_select(cc, -1, c_grp)
 
@@ -1029,6 +1033,7 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
         pazaz_off = torch.index_select(pazaz, -1, perm_off)
         pazd_off = torch.index_select(pazd, -1, perm_off)
         grp_off = torch.as_tensor(ground_off, device=dev).to(torch.int64)
+        g_plan = plan_segments(ground_off, n_groups, one_launch=True)
 
         def c_gather(c):
             # K4: sentinel pairs read 0.0; pair_w_off, paz_off and
@@ -1037,8 +1042,7 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
                                    plan.off_window, plan.pair_chunk)
 
         def group_sum(v_off):
-            return torch.zeros(n_groups, dtype=dt, device=dev).index_add_(
-                0, grp_off, v_off)
+            return segment_sums(v_off, g_plan)
 
         def matvec_g(x):
             a_, g = x

@@ -46,8 +46,12 @@ brackets the second successfully read file (the first steady one) in
 The reference's knobs whose machinery is not ported raise
 ``NotImplementedError`` naming the knob, in :meth:`Runner.from_config`
 and in :meth:`Runner.run_tod`: ``[ingest] compile_cache_dir`` (XLA's
-persistent compilation cache), ``[campaign]``, ``[control]`` and
-``[tuning]``.
+persistent compilation cache), ``[campaign]`` and ``[tuning]``.
+``[control]`` runs: ``admission`` gates the elastic scheduler's claims
+behind the SLO-driven shed/defer loop
+(:class:`~comapreduce_tpu_torch.control.admission.AdmissionController`);
+``autoscale`` and ``solver_policy`` are read by the supervisor sidecar
+and the map-maker's CLI.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ import time
 from dataclasses import dataclass, field
 
 from comapreduce_tpu_torch._device import resolve_device
+from comapreduce_tpu_torch.control.config import ControlConfig
 from comapreduce_tpu_torch.data.level import COMAPLevel1, COMAPLevel2
 from comapreduce_tpu_torch.ingest.config import IngestConfig
 from comapreduce_tpu_torch.ops.precision import PrecisionPolicy
@@ -84,24 +89,17 @@ logger = logging.getLogger("comapreduce_tpu_torch")
 # each config table with unported options (the reference's KNOBS), and
 # the value the port runs (None: any value); any other value of a known
 # option is unported. [ingest] runs but for compile_cache_dir;
-# [precision], [resilience], [telemetry], [quality] and [slo] are
-# ported: their own coerce() validates them
+# [precision], [resilience], [telemetry], [quality], [slo] and
+# [control] are ported: their own coerce() validates them
 _TABLES = {
     "ingest": {"prefetch": None, "cache_mb": None, "spill_dir": None,
                "eager_tod": None, "compile_cache_dir": "",
                "writeback": None},
     "campaign": {"t_quantum": 0, "scan_quantum": 0, "l_quantum": 0,
                  "warm_compile": False},
-    "control": {},
     "tuning": {"enabled": False, "device_hbm_mb": None,
                "max_candidates": None, "repeats": None,
                "min_improvement": None},
-}
-_KNOWN = {
-    "control": ("autoscale", "min_ranks", "max_ranks",
-                "target_files_per_hour", "cooldown_s", "poll_s",
-                "liveness_ttl_s", "admission", "shed_high_water",
-                "shed_low_water", "solver_policy"),
 }
 def _ported_value(table: str, key: str, value) -> bool:
     want = _TABLES[table].get(key, ...)
@@ -120,8 +118,8 @@ def unported_knobs(tables: dict) -> list[str]:
     """Names (``table.option``) of the set config knobs whose machinery
     the port lacks; ``tables`` maps a table name to its mapping or
     ``None`` (tables the port runs in full are not judged: only
-    ``[ingest]``'s ``compile_cache_dir``, ``[campaign]``, ``[control]``
-    and ``[tuning]`` are). An option no table knows raises
+    ``[ingest]``'s ``compile_cache_dir``, ``[campaign]`` and
+    ``[tuning]`` are). An option no table knows raises
     ``ValueError``, as the reference's config coercion does."""
     bad = []
     for table in _TABLES:
@@ -131,8 +129,7 @@ def unported_knobs(tables: dict) -> list[str]:
         if isinstance(value, IngestConfig):
             value = dataclasses.asdict(value)
         value = dict(value)
-        known = _KNOWN.get(table, tuple(_TABLES[table]))
-        unknown = sorted(set(value) - set(known))
+        unknown = sorted(set(value) - set(_TABLES[table]))
         if unknown:
             raise ValueError(f"unknown [{table}] option(s) {unknown}")
         bad += [f"{table}.{k}" for k, v in value.items()
@@ -144,7 +141,7 @@ def _refuse(bad: list[str]) -> None:
     if bad:
         raise NotImplementedError(
             "not ported: " + ", ".join(bad) + " (the port runs without "
-            "XLA's compile_cache_dir, [campaign], [control] or [tuning])")
+            "XLA's compile_cache_dir, [campaign] or [tuning])")
 
 
 def set_logging(base: str = "pipeline", log_dir: str = ".",
@@ -280,6 +277,7 @@ class Runner:
         # run start, not inside the per-file best-effort ledger path
         QualityConfig.coerce(self.quality)
         SloConfig.coerce(self.slo)
+        ControlConfig.coerce(self.control)
         if tcfg.enabled and not TELEMETRY.enabled:
             # the registry is process-wide: the first enabled Runner
             # opens this rank's stream; sub-runs (run_astro_cal) and
@@ -331,9 +329,16 @@ class Runner:
                 lease_ttl_s=res.lease_ttl_s,
                 steal_after_s=res.steal_after_s,
                 ledger=res.ledger, chaos=res.chaos,
-                heartbeat=res.heartbeat)
+                heartbeat=res.heartbeat,
+                admission=self._admission_gate(res))
             source = sched.claim_iter()
         else:
+            if self._admission_gate(res) is not None:
+                logger.warning(
+                    "[control] admission is on but the shard is STATIC "
+                    "([resilience] lease_ttl_s = 0): a static shard "
+                    "has no claim/defer cycle, so admission control "
+                    "is inert for this run")
             source = self.shard_iter(filelist)
         self._scheduler = sched
         results = []
@@ -390,6 +395,21 @@ class Runner:
                 # deadlines
                 self._resilience.watchdog.timings = self.timings
         return self._resilience
+
+    def _admission_gate(self, res):
+        """The SLO-driven admission controller for this rank's elastic
+        scheduler, or None when ``[control] admission`` is off — None
+        keeps the scheduler byte-for-byte on its uncontrolled path
+        (``runner.py:437``)."""
+        ccfg = ControlConfig.coerce(self.control)
+        if not ccfg.admission:
+            return None
+        from comapreduce_tpu_torch.control.admission import \
+            AdmissionController
+
+        return AdmissionController(
+            ccfg, res.state_dir or self.state_dir or self.output_dir,
+            rank=self.rank)
 
     def _admitted(self, source, res):
         """``source`` minus currently-quarantined files (no read, one log
@@ -727,8 +747,8 @@ class Runner:
         ``prefix``, ``log_dir`` (the state directory) and ``backend``,
         one table of kwargs per stage, and the ``[resilience]`` (elastic
         claiming on unless ``lease_ttl_s`` is given), ``[quality]`` and
-        ``[slo]`` tables, and ``[telemetry]``. An unported knob raises
-        ``NotImplementedError``."""
+        ``[slo]`` tables, ``[telemetry]`` and ``[control]``. An unported
+        knob raises ``NotImplementedError``."""
         if isinstance(config, str):
             config = cfg_mod.load_toml(config)
         tables = {k: config.get(k) for k in _TABLES}
@@ -753,4 +773,6 @@ class Runner:
                    resilience=ResilienceConfig.coerce_campaign(
                        config.get("resilience")),
                    quality=QualityConfig.coerce(config.get("quality")),
-                   slo=SloConfig.coerce(config.get("slo")), **tables)
+                   slo=SloConfig.coerce(config.get("slo")),
+                   control=ControlConfig.coerce(config.get("control")),
+                   **tables)

@@ -71,7 +71,8 @@ def read_manifest(state_dir: str) -> dict | None:
     man, verdict = check_json(man)
     if verdict is False:
         logger.warning("queue manifest in %s fails its _sha256 seal; "
-                       "ignoring it (run tools/campaign_fsck.py)",
+                       "ignoring it (run python -m "
+                       "comapreduce_tpu_torch.cli.campaign_fsck)",
                        state_dir)
         return None
     return man

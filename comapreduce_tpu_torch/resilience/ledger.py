@@ -55,9 +55,10 @@ Level-1 inputs stay corrupt until an operator re-stages the data and
 Every line appended since the integrity plane landed carries an
 embedded ``_sha256`` seal (``resilience.integrity.seal_line``); a
 line whose seal fails verification is dropped-and-counted on load
-exactly like a torn line (``tools/campaign_fsck.py --repair`` rewrites
-the file without them). Pre-integrity lines have no seal and load
-unverified — the scheme is additive.
+exactly like a torn line (``python -m
+comapreduce_tpu_torch.cli.campaign_fsck --repair`` rewrites the file
+without them). Pre-integrity lines have no seal and load unverified —
+the scheme is additive.
 """
 
 from __future__ import annotations
@@ -186,7 +187,8 @@ class QuarantineLedger:
         if corrupt:
             logger.warning("quarantine ledger %s: dropped %d line(s) "
                            "failing their _sha256 seal (bit rot? run "
-                           "tools/campaign_fsck.py --repair)", path,
+                           "python -m comapreduce_tpu_torch.cli."
+                           "campaign_fsck --repair)", path,
                            corrupt)
         self.corrupt_lines += corrupt
         return out

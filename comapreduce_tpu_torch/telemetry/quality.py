@@ -390,8 +390,9 @@ def read_quality(source) -> list:
     every JSONL reader here; so are lines failing their embedded
     ``_sha256`` seal (a rotted flag flipping a file in or out of the
     destriper's exclusion set is a map-level corruption, not a
-    bookkeeping blip) — ``tools/campaign_fsck.py --repair`` rewrites
-    the file without them."""
+    bookkeeping blip) — ``python -m
+    comapreduce_tpu_torch.cli.campaign_fsck --repair`` rewrites the file
+    without them."""
     from comapreduce_tpu_torch.resilience.integrity import check_line
 
     if isinstance(source, (list, tuple)):

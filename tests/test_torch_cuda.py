@@ -20,16 +20,18 @@ Tolerances: K1 is bitwise on rows that take the stride-4 median; a row
 that takes the masked-mean fallback sums ~75 000 samples in another
 order than ``torch.sum``, so it is held to rtol 1e-5 (f32 summation
 order at that length). K2 returns order statistics and their
-``_median_mid``: bitwise. K3's atomics add in a run-to-run order:
-bitwise on integer-valued sums (exact in f32 in any order) and, on real
-values, each bin within gamma(n-1) * sum|x| of its exact f64 sum, a
-bound that holds for every summation order
-(``chip_smoke.check_window_sum``). K4 copies one source word per lane:
+``_median_mid``: bitwise. K3 adds in its own fixed order, not the plain
+version's: bitwise on integer-valued sums (exact in f32 in any order)
+and, on real values, each bin within gamma(n-1) * sum|x| of its exact
+f64 sum, a bound that holds for every summation order
+(``chip_smoke.check_window_sum``); two launches on the same inputs give
+the same bits, sorted or shuffled ids, and so do the planned solver's
+fixed-order segment sums. K4 copies one source word per lane:
 bitwise. ``precise_dot``: within u |exact| plus (depth + 2)^2 u^2
 sum|x y| of the float64 dot (``chip_smoke.phase_small_mg_banded``).
 Converged band solves, card against CPU: 5e-4 absolute on the
 null-space-invariant or mean-removed products (``chip_smoke.FIELD_ATOL``;
-K3's atomics reorder the card's sums).
+the card sums in another order than the CPU).
 """
 
 import numpy as np
@@ -138,6 +140,39 @@ def test_cuda_window_sum_stress_case(cuda_device):
     exact, abs_sum, n = plain64[0], plain64[1], plain64[2][0]
     ku = (n - 1).clamp(min=0) * F32_U
     assert bool(((got - exact).abs() <= ku / (1 - ku) * abs_sum).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shuffled", [False, True],
+                         ids=["sorted", "shuffled"])
+def test_cuda_window_sum_same_bits_launch_to_launch(cuda_device, shuffled):
+    """K3 launched twice on the stress layout (ids shuffled inside each
+    chunk, or as planned): the same bytes; the planned solver's segment
+    sums (``ops.segment``, one-launch plans) twice: the same bytes."""
+    from comapreduce_tpu_torch.ops.segment import (plan_segments,
+                                                   segment_sums)
+
+    ids, base, window, chunk, out_size = window_sum_stress_case()
+    rng = np.random.default_rng(12)
+    if shuffled:
+        perm = np.concatenate([c * chunk + rng.permutation(chunk)
+                               for c in range(ids.size // chunk)])
+        ids = ids[perm]
+    it = torch.as_tensor(ids, dtype=torch.int32, device=cuda_device)
+    bt = torch.as_tensor(base, dtype=torch.int32, device=cuda_device)
+    vals = torch.as_tensor(rng.normal(size=(4, ids.size)).astype(
+        np.float32), device=cuda_device)
+    a = binned_window_sum(vals, it, bt, window, chunk, out_size).cpu()
+    b = binned_window_sum(vals, it, bt, window, chunk, out_size).cpu()
+    np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                  b.numpy().view(np.int32))
+    grp = np.sort(rng.integers(0, 5000, ids.size)) if not shuffled \
+        else rng.integers(0, 5000, ids.size)
+    plan = plan_segments(grp, 5000, one_launch=True)
+    c = segment_sums(vals, plan).cpu()
+    d = segment_sums(vals, plan).cpu()
+    np.testing.assert_array_equal(c.numpy().view(np.int32),
+                                  d.numpy().view(np.int32))
 
 
 # R = 2 is the ground solve's fused (c0, c1) gather

@@ -38,6 +38,17 @@ from comapreduce_tpu_torch.ops.cuda_median import (
     rolling_median_windows, rolling_median_windows_plain)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the whole module: its many small ops gain
+    nothing from more on the CPU, and the suite's parallel workers
+    oversubscribe the cores (the old count is restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     """The card, decided when the test runs (never at import)."""

@@ -204,3 +204,77 @@ def test_bad_precond_raises():
     with pytest.raises(ValueError, match="precond"):
         destripe_planned(torch.as_tensor(tod), torch.as_tensor(w), plan,
                          n_iter=2, precond="twolevel")
+
+
+# the planned solver's sums (two-level restriction, ground groups, the
+# V-cycle's COO rows and restrictions) and the binning streams now add
+# through ops.segment in a fixed order; on the CPU that is index_add_ in
+# sample order, bit for bit the sums they replace
+SEGMENT_SITES = {
+    "coarse_blocks": (np.arange(4000) // 8, 500, ()),
+    "ground_groups": (np.repeat(np.arange(12), 333)[:3990], 12, ()),
+    "coo_rows": (np.sort(np.random.default_rng(5).integers(0, 700, 6000)),
+                 700, (4,)),
+    "restrict": (np.arange(1000) // 4, 250, (2, 3)),
+    "pixels": (np.random.default_rng(6).integers(-3, 900, 5000), 880, ()),
+}
+
+
+@pytest.mark.parametrize("site", list(SEGMENT_SITES))
+def test_fixed_order_sums_equal_index_add_on_the_cpu(site):
+    from comapreduce_tpu_torch.ops.segment import (plan_segments, run_sums,
+                                                   segment_sums)
+
+    ids, n, lead = SEGMENT_SITES[site]
+    rng = np.random.default_rng(7)
+    v = torch.as_tensor(rng.normal(size=lead + (ids.size,)).astype(
+        np.float32))
+    it = torch.as_tensor(ids)
+    sane = torch.where((it < 0) | (it >= n), torch.full_like(it, n), it)
+    old = torch.zeros(lead + (n + 1,)).index_add_(-1, sane, v)[..., :n]
+    plan = plan_segments(ids, n, one_launch=True)
+    assert torch.equal(segment_sums(v, plan), old)
+    # the card's order (one segment_reduce over the id-sorted samples),
+    # run here on the CPU: the same sums to f32 summation order
+    card = run_sums(v, plan)
+    exact = torch.zeros(lead + (n + 1,), dtype=torch.float64).index_add_(
+        -1, sane, v.double())[..., :n]
+    absum = torch.zeros(lead + (n + 1,), dtype=torch.float64).index_add_(
+        -1, sane, v.abs().double())[..., :n]
+    cnt = torch.bincount(sane, minlength=n + 1)[:n].double()
+    u = 2.0 ** -24
+    lim = (cnt - 1).clamp(min=0) * u / (1 - (cnt - 1).clamp(min=0) * u) \
+        * absum
+    assert bool(((card.double() - exact).abs() <= lim).all())
+
+
+def test_binning_streams_equal_index_add_on_the_cpu():
+    """``bin_map`` / ``accumulate_weights`` / ``naive_map`` over a
+    :class:`PixelStream` (planned once, as the scatter destriper and
+    FitSource use it) equal the per-call ``index_add_`` sums bit for
+    bit on the CPU."""
+    from comapreduce_tpu_torch.mapmaking import binning
+
+    rng = np.random.default_rng(8)
+    N, npix = 6000, 700
+    pix = torch.as_tensor(rng.integers(-5, npix + 5, N))
+    tod = torch.as_tensor(rng.normal(size=N).astype(np.float32))
+    w = torch.as_tensor(rng.random(N).astype(np.float32))
+    sane = torch.where((pix < 0) | (pix >= npix),
+                       torch.full_like(pix, npix), pix)
+
+    def old(v):
+        return torch.zeros(npix + 1).index_add_(0, sane, v)[:npix]
+
+    stream = binning.pixel_stream(pix, npix)
+    assert stream.plan is None
+    sw = binning.accumulate_weights(stream, w, npix)
+    assert torch.equal(sw, old(w))
+    m, sw2, hits = binning.naive_map(tod, stream, w, npix)
+    want = torch.where(old(w) > 0, old(tod * w) / torch.clamp(old(w),
+                                                              min=1e-30),
+                       torch.zeros(()))
+    assert torch.equal(m, want) and torch.equal(sw2, sw)
+    assert torch.equal(hits, old(torch.ones_like(w)))
+    assert torch.equal(binning.bin_map(tod, stream, w, npix, sum_w=sw),
+                       binning.bin_map(tod, pix, w, npix))

@@ -24,6 +24,7 @@ import os
 import h5py
 import numpy as np
 import pytest
+import torch
 
 from comapreduce_tpu.mapmaking import leveldata as ref_ld
 from comapreduce_tpu.mapmaking.pixel_space import PixelSpace as RefSpace
@@ -35,6 +36,17 @@ from torch_level2_data import level2_store
 
 FIELD = ((170.0, 52.0), (1.0 / 30, 1.0 / 30), (240, 240))
 GAL_FIELD = ((153.4, 59.5), (1.0 / 30, 1.0 / 30), (240, 240))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the whole module: its many small ops gain
+    nothing from more on the CPU, and the suite's parallel workers
+    oversubscribe the cores (the old count is restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

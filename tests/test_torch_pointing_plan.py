@@ -4,8 +4,8 @@ the reference, on the same numpy inputs (CPU).
 Tolerances: the plan is integer bookkeeping built by the same numpy
 algorithm, so every array is held BYTE-equal to the reference's. The
 window sums add the same values in another order than the reference's
-ordered chunk loop (and, on the card, in a run-to-run order set by
-atomics): rtol 2e-6 with atol 2e-6 of the output's scale — the bound
+ordered chunk loop (and, on the card, in the kernel's fixed two-pass
+order): rtol 2e-6 with atol 2e-6 of the output's scale — the bound
 ``tests/test_pallas_binning.py`` holds the Pallas kernel to.
 """
 
@@ -186,6 +186,27 @@ def test_window_sum_matches_fori_and_pallas(lead, chunk):
     assert got.shape == lead + (out_size,)
     _close(got, fori)
     _close(got, pallas)
+
+
+@pytest.mark.parametrize("lead,chunk", [((), 128), ((4,), 256)])
+def test_window_sum_with_ids_shuffled_in_chunks_matches_reference(lead,
+                                                                  chunk):
+    """K3's contract holds for ids in any order inside a chunk (sorted
+    ids may only make it faster): the plan's ids and values permuted
+    within each chunk, the port against the reference's XLA loop and its
+    Pallas kernel (``interpret=True``) on the same permuted inputs."""
+    rng = np.random.default_rng(4)
+    M, out_size = 2048, 500
+    ids, base, window = _windowed(M, out_size, chunk, seed=3)
+    vals = rng.normal(size=lead + (M,)).astype(np.float32)
+    perm = np.concatenate([c * chunk + rng.permutation(chunk)
+                           for c in range(M // chunk)])
+    got, fori, pallas = _sums(vals[..., perm], ids[perm], base, window,
+                              chunk, out_size)
+    sorted_got = _sums(vals, ids, base, window, chunk, out_size)[0]
+    _close(got, fori)
+    _close(got, pallas)
+    _close(got, sorted_got)
 
 
 def test_window_sum_sentinel_and_out_of_window_drop():

@@ -69,6 +69,17 @@ from comapreduce_tpu_torch.pipeline.runner import (level2_path, set_logging,
 from comapreduce_tpu_torch.pipeline.stages import CheckLevel1File
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the whole module: its many small ops gain
+    nothing from more on the CPU, and the suite's parallel workers
+    oversubscribe the cores (the old count is restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _write_toml(path, cfg):
     """A minimal TOML writer for the config's flat tables."""
     def val(v):
@@ -235,13 +246,13 @@ UNPORTED = [
 ]
 
 
-# the knobs of UNPORTED that the ingest tier, bf16 streaming and the
-# telemetry plane now run; bf16 narrows only in the eager loader, so its
-# case reads ahead
+# the knobs of UNPORTED that the ingest tier, bf16 streaming, the
+# telemetry plane and the control plane now run; bf16 narrows only in
+# the eager loader, so its case reads ahead
 RUNS = {"ingest.prefetch": {}, "ingest.cache_mb": {},
         "ingest.writeback": {}, "precision.cg_dot": {},
         "precision.tod_dtype": {"ingest": {"prefetch": 1}},
-        "telemetry.enabled": {}}
+        "telemetry.enabled": {}, "control.admission": {}}
 
 
 @pytest.mark.parametrize("table,value,knob", UNPORTED,
@@ -252,8 +263,9 @@ def test_unported_knob_raises_at_from_config_and_run_tod(table, value,
     """Each knob whose machinery is not ported raises naming itself, at
     ``from_config`` and at ``run_tod`` (``compile_cache_dir`` naming
     XLA, whose cache it is). The knobs of ``RUNS`` were refused until
-    the ingest tier (and, for ``[telemetry]``, the telemetry plane) was
-    ported; each now runs the shipped chain over one observation in both
+    the ingest tier (and, for ``[telemetry]`` and ``[control]``, the
+    telemetry and control planes) was ported; each now runs the shipped
+    chain over one observation in both
     packages, the port's Level-2 file held to the reference's by
     ``check_level2`` (each package's telemetry stream closed after)."""
     cfg = shipped_chain_config()

@@ -185,6 +185,15 @@ def test_build_report_matches_reference(tmp_path, pinned_now, seed,
         assert got["supervisor"]["stuck"] is False
 
 
+def _ref_fsck(text: str) -> str:
+    """The port's report with its fsck command named as the reference
+    names its own: the two packages send the operator to their own tool
+    (``tools/campaign_fsck.py`` needs JAX)."""
+    port = "python -m comapreduce_tpu_torch.cli.campaign_fsck"
+    assert "tools/campaign_fsck.py" not in text
+    return text.replace(port, "tools/campaign_fsck.py")
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_probe_cli_matches_reference(tmp_path, pinned_now, capsys, seed):
     now = campaign_state(tmp_path, seed, "live" if seed % 2 else "")
@@ -195,11 +204,11 @@ def test_probe_cli_matches_reference(tmp_path, pinned_now, capsys, seed):
         rc = port_watch.main(argv)
         got = capsys.readouterr().out
         assert rc == ref_watch.main(argv)
-        assert got == capsys.readouterr().out, argv
+        assert _ref_fsck(got) == capsys.readouterr().out, argv
     rc = port_wr.main([str(tmp_path), "--stale-s", str(STALE_S)])
     got = capsys.readouterr().out
     assert rc == ref_wr.main([str(tmp_path), "--stale-s", str(STALE_S)])
-    assert got == capsys.readouterr().out
+    assert _ref_fsck(got) == capsys.readouterr().out
     rep = port_status.build_report(str(tmp_path), stale_s=STALE_S)
     assert rc == (0 if port_status.report_healthy(rep) else 1)
 
