@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero and no result is printed:
    versions on the card, at the shapes the full-width paths give them —
    K3 at its three sites on the flagship plan (4 bands) and on the field
    plan (one band), K4 with the ground solve's two coefficient rows
-   (R = 2) and with one (R = 1), and K3 once more with its ids shuffled
+   (R = 2) and with one (R = 1), K3 at the polarized solve's new sites
+   on the field plan (the stacked pair sum at R = 10, the rank sums at
+   R = 7 and R = 3), and K3 once more with its ids shuffled
    inside each chunk — (K1, K2 and K4 bitwise; K3 bitwise on
    integer-valued sums and, on real values, within the f32 summation
    bound of the exact sum, and three launches on the same inputs the
@@ -231,7 +233,15 @@ Phases, in order; any failure exits non-zero and no result is printed:
    quarantined, finite products, positive scan weights, ``probe_virtual``
    against the members, K1 and K2 launched as derived and held against
    their plain versions at each of the run's inputs; per file the
-   generation wall, the chain's wait, the stage walls and the peak.
+   generation wall, the chain's wait, the stage walls and the peak. L.2
+   runs as a campaign: ``[campaign]`` with the documented quanta (4096,
+   4, 1024; its two jittered members in one bucket) and ``warm_compile``,
+   ``[ingest] compile_cache_dir`` on a fresh directory under
+   ``chiprun_out/synthetic/full/``, ``[tuning]`` over phase N.3's winners
+   and ``[telemetry]`` on: the warm-up builds K1's and K2's libraries
+   once each on its thread and nothing is built while the files run,
+   ``AtmosphereRemoval``'s planner consults the stage winner, and one
+   program record a stage program and bucket carries its temporaries.
 18. phase M, the observability plane (``phase_observability``, run
    after phase K on phase E's store and phase F's joint maps): M.1 band 0
    of that store on the ground route (K3, K4), untraced twice and traced
@@ -250,6 +260,24 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``synth://`` members at L.1's widths: one ``torch.profiler`` trace
    under ``<log_dir>/jax_trace/`` naming K1's and K2's CUDA symbols as
    often as the counters moved in it, and the reference's span names.
+19. phase N, polarized destriping and the autotuner
+   (``phase_pol_tuning``, run after phase M and before phase L, while
+   the field plan is in scope): N.1 ``destripe_pol_planned`` and
+   ``destripe_pol`` at FIELD_SMALL with an I/Q/U sky seen through the
+   demo's polarization angle, card against CPU (within ``POL_ATOL``:
+   the reference test's tolerances for the scatter oracle, measured ones
+   for the planned solve; hits equal); N.2
+   ``destripe_pol_planned`` on the full field's band-0 pointing (4 x 19
+   x 135 700 samples, the 480 x 480 plan) with I, Q, U and 1/f offsets,
+   150 iterations, twice and bitwise, K3 launched ``7 + 2 k`` times,
+   the recovered Q and U against the injection; N.3 ``tuning.Tuner``
+   over the solver group (mg_block x mg_smooth) on the full field's band
+   0, multigrid, 60 iterations, 6 candidates, 2 repeats, and over the
+   stage group (feed_batch) at L.2's bucket, a second tuner on the same
+   cache taking 0 measurements, then ``run_destriper.main`` on phase F's
+   small store with ``[Tuning]`` logging the applied winners, its maps
+   held to the untuned run's. (Phase E runs no ``SkyDip`` after its
+   chain: phase J.1 runs it at the full F, B and C.)
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -583,8 +611,9 @@ def _k3_layouts(plan, dev):
     }
 
 
-def k3_sites(plan, R: int, g, prefix: str = "") -> dict:
-    """K3 at the planned destriper's three call sites of ``plan`` with
+def k3_sites(plan, R: int, g, prefix: str = "", only=None) -> dict:
+    """K3 at the planned destriper's three call sites of ``plan`` (those
+    named in ``only``, default all) with
     ``R`` right-hand sides of random values: each held to its plain
     version and to itself over three launches (``check_window_sum``) and
     timed beside it, its bound and ``index_add_`` into a staging column
@@ -602,6 +631,8 @@ def k3_sites(plan, R: int, g, prefix: str = "") -> dict:
     sites = {}
     for site, (ids, base, window, chunk, out_size, M) in _k3_layouts(
             plan, dev).items():
+        if only is not None and site not in only:
+            continue
         site = prefix + site
         vals = torch.randn((R, M), generator=g, device=dev)
         err, n_max = check_window_sum(site, vals, ids, base, window,
@@ -907,6 +938,14 @@ def phase_kernel_parity(plan, full, field_plan):
     for prefix, pl, R in (("", plan, B), ("field_", field_plan, 1),
                           ("field4_", field_plan, B)):
         sites.update(k3_sites(pl, R, g, prefix))
+    # the polarized planned solve's new sites on the field plan (phase
+    # N.2): the ten stacked pair rows once, the seven rank rows once,
+    # then three rank rows in each CG iteration (its R = 1 offset sums
+    # are the field_ sites')
+    for prefix, R, site in (("pol10_", 10, "pair_sum"),
+                            ("pol7_", 7, "rank_sum"),
+                            ("pol3_", 3, "rank_sum")):
+        sites.update(k3_sites(field_plan, R, g, prefix, only=(site,)))
     # the contract holds for ids in any order inside a chunk: the
     # flagship's pair sum with its ids (and values) shuffled per chunk
     ids, base, window, chunk, out_size, M = _k3_layouts(
@@ -3161,50 +3200,9 @@ def phase_chain_full(machinery: bool = True):
         "vane_median_rel_err": {"gain": rel_g, "tsys": rel_t},
         "spike_share": spike_share, "sites": sites,
     }
-    line["skydip"] = skydip_after_chain(data, lvl2)
     log("chain_full", json.dumps({k: v for k, v in line.items()
                                   if k != "sites"}))
     return line, lvl2
-
-
-def skydip_after_chain(data, lvl2, device: str = "cuda") -> dict:
-    """SkyDip's default mode on phase E's observation right after its
-    chain, in the chain's process (where a second chunk of all F feeds
-    once failed to allocate, ROADMAP 3): the fits finite, the stage's
-    wall, and its peak device memory above what it started from, held
-    below one chunk of F feeds (the stage reads one feed at a time).
-    ``lvl2`` is not updated."""
-    import torch
-
-    from comapreduce_tpu_torch.pipeline.stages import SkyDip
-
-    on_card = torch.device(device).type == "cuda"
-    F, B, C, T = (int(x) for x in data["spectrometer/tod"].shape)
-    if on_card:
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    stage = SkyDip(device=device)
-    ok = stage(data, lvl2)
-    if on_card:
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fits = stage.save_data[0].get("skydip/fits") if ok else None
-    if fits is None or fits.shape != (F, B, 2, C) or \
-            not np.isfinite(fits).all():
-        raise SystemExit(f"chain full: SkyDip gave {ok}, fits "
-                         f"{None if fits is None else fits.shape}")
-    chunk = F * B * C * T * 4
-    out = {"wall_s": wall, "chunk_gib": chunk / 2**30,
-           "peak_above_base_gib": None}
-    if on_card:
-        peak = torch.cuda.max_memory_allocated() - base
-        out["peak_above_base_gib"] = peak / 2**30
-        if not peak < chunk:
-            raise SystemExit(f"chain full: SkyDip's peak {peak / 2**30} "
-                             f"GiB, not under a chunk of {F} feeds")
-    return out
 
 
 # Phase F: the map-maker's Level-2 reader and its INI entry point over
@@ -3307,6 +3305,8 @@ class MainProbe:
         self.device = device
         self.reads, self.solves, self.cg, self.writes = [], [], [], []
         self.last_data = None
+        # each band's DestriperData, by band
+        self.datas = {}
         self.cache_stats = []
         self.cache_bytes = []
         self._writing = False
@@ -3332,6 +3332,7 @@ class MainProbe:
         def timed_read(*a, **kw):
             t0 = time.perf_counter()
             data = self.last_data = read(*a, **kw)
+            self.datas[kw.get("band", 0)] = data
             files = a[0] if a else kw.get("filenames", ())
             self.reads.append({"band": kw.get("band", 0),
                                "read_s": time.perf_counter() - t0,
@@ -5331,6 +5332,40 @@ def _map_gap(got: dict, want: dict, null_mode: bool = False) -> float:
     return float(np.max(np.abs(diff))) / scale if diff.size else 0.0
 
 
+def component_gap(got: dict, want: dict, data, offset_length: int) -> float:
+    """:func:`_map_gap` with the offsets' whole null space taken out: one
+    constant for each connected component of the graph that joins an
+    offset to the pixels its weighted samples hit (two preconditioners
+    leave different constants in different components). ``data``: the
+    band's ``DestriperData``."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    pix = np.asarray(data.pixels).astype(np.int64)
+    npix = int(data.npix)
+    off = np.arange(pix.size) // offset_length
+    n_off = int(off.max()) + 1
+    ok = (pix >= 0) & (pix < npix) & (np.asarray(data.weights) > 0)
+    graph = sp.coo_matrix((np.ones(int(ok.sum())), (off[ok],
+                                                     n_off + pix[ok])),
+                          shape=(n_off + npix,) * 2)
+    _, label = connected_components(graph, directed=False)
+    hit = np.flatnonzero(np.bincount(pix[ok], minlength=npix) > 0)
+    sky = hit if data.sky_pixels is None else \
+        np.asarray(data.sky_pixels)[hit]
+    g = got["DESTRIPED"].reshape(-1)[sky].astype(np.float64)
+    w = want["DESTRIPED"].reshape(-1)[sky].astype(np.float64)
+    wt = want["WEIGHTS"].reshape(-1)[sky].astype(np.float64)
+    diff = g - w
+    comp = label[n_off + hit]
+    for c in np.unique(comp):
+        sel = comp == c
+        diff[sel] -= np.sum(diff[sel] * wt[sel]) / max(np.sum(wt[sel]),
+                                                         1e-30)
+    scale = max(float(np.nanstd(want["DESTRIPED"])), 1.0)
+    return float(np.max(np.abs(diff))) / scale if diff.size else 0.0
+
+
 def phase_serving(store, stage_log=None, device: str = "cuda",
                   field=SHIPPED_FIELD):
     """Phase K: ``MapServer`` over ``store`` served as files A and B.
@@ -5879,14 +5914,27 @@ def phase_transfer(devices=("cuda", "cpu"), base=None) -> dict:
     return line
 
 
-def phase_synth_full(device: str = "cuda", base=None, **overrides) -> dict:
+def phase_synth_full(device: str = "cuda", base=None, tuning_src=None,
+                     **overrides) -> dict:
     """Phase L.2: a ``synth://`` campaign at the instrument's width
     (:data:`SYNTH_FULL`, ``validate_vane_pad`` under the shipped chain's
     pad), registered in ``synthetic.memsource`` and reduced from its
     ``virtual_filelist`` by the shipped ``configuration.toml`` chain with
     ``[ingest] prefetch = 1``, so the host generation of file 2 (on the
     prefetcher's worker, through the port's ``ingest.loaders``) overlaps
-    the chain of file 1. Checks: both files reduced and none quarantined;
+    the chain of file 1. The run is a campaign: ``[campaign]`` with the
+    documented quanta (:data:`CAMPAIGN`) and ``warm_compile``, ``[ingest]
+    compile_cache_dir`` on a fresh directory (the kernel libraries), the
+    jittered members in one bucket; ``[tuning]`` over the winners file
+    ``tuning_src`` (phase N.3's, copied into the run's state directory);
+    ``[telemetry]`` on (the program records). Campaign checks: the
+    warm-up probed both members, warmed each hooked stage once (one
+    bucket) and recorded no error; on the card it built (or found) the
+    reduction's libraries (K1's and K2's) once each, all on the warm-up
+    thread, and nothing was built while the files ran; ``AtmosphereRemoval``'s
+    feed-batch planner consulted the winners cache (a hit); one program
+    record per stage program and shape bucket, each with its temporaries
+    on the card. Checks: both files reduced and none quarantined;
     the averaged TOD and every Level-2 weight finite, the weights positive
     on every scan sample (the pad trap zeroes them all); on the card K1
     (the scenario's spikes and NaNs masked and filled) and K2 launched as
@@ -5909,10 +5957,26 @@ def phase_synth_full(device: str = "cuda", base=None, **overrides) -> dict:
     from comapreduce_tpu_torch.synthetic.generator import virtual_filelist
     from comapreduce_tpu_torch.synthetic.scenario import ScenarioConfig
 
+    from comapreduce_tpu_torch import _build
+    from comapreduce_tpu_torch.pipeline import campaign
+    from comapreduce_tpu_torch.telemetry import TELEMETRY
+    from comapreduce_tpu_torch.telemetry.programs import read_programs
+    from comapreduce_tpu_torch.tuning import TUNING, tuning_path
+
     t_phase = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
+    run_dir = os.path.join(base or SYNTH_DIR, "full")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    state_dir = os.path.join(run_dir, "logs")
+    os.makedirs(state_dir)
+    if tuning_src:
+        shutil.copy(tuning_src, tuning_path(state_dir))
     run_cfg = shipped_chain_config()
-    run_cfg["ingest"] = {"prefetch": 1}
+    run_cfg["ingest"] = {"prefetch": 1, "compile_cache_dir": os.path.join(
+        run_dir, "compile_cache")}
+    run_cfg["campaign"] = dict(CAMPAIGN, warm_compile=True)
+    run_cfg["tuning"] = {"enabled": True}
+    run_cfg["telemetry"] = {"enabled": True}
     # the vane window pad of the chain that consumes the scenario
     pad = resolve("MeasureSystemTemperature",
                   **run_cfg.get("MeasureSystemTemperature", {})).pad
@@ -5932,8 +5996,6 @@ def phase_synth_full(device: str = "cuda", base=None, **overrides) -> dict:
                       "n_scans": len(p.truth["scan_edges"])}
         return p, store
 
-    run_dir = os.path.join(base or SYNTH_DIR, "full")
-    shutil.rmtree(run_dir, ignore_errors=True)
     if on_card:
         torch.cuda.empty_cache()
         mem_base = torch.cuda.memory_allocated()
@@ -5969,6 +6031,10 @@ def phase_synth_full(device: str = "cuda", base=None, **overrides) -> dict:
     for fn in counters:
         fn.launches = 0
     memsource.virtual_store = timed_store
+    # the run opens its own telemetry stream and winners cache
+    TELEMETRY.close()
+    TUNING.close()
+    compiles = campaign.CompileCounter().install()
     try:
         with KernelInputs() as inputs:
             t0 = time.perf_counter()
@@ -5976,9 +6042,49 @@ def phase_synth_full(device: str = "cuda", base=None, **overrides) -> dict:
             if on_card:
                 torch.cuda.synchronize()
             chain_s = time.perf_counter() - t0
+        runner.warmup.join(timeout=60)
+        tuning_hits = TUNING.cache.hits
     finally:
         memsource.virtual_store = virtual_store
+        compiles.remove()
+        TELEMETRY.close()
+        TUNING.close()
+        # back to the default library directory, where every library of
+        # the process is already loaded
+        _build.set_build_dir(None)
+        campaign._CACHE_DIR_ENABLED = None
     launches = {fn.__name__: fn.launches for fn in counters}
+    warm = runner.warmup
+    programs = read_programs(state_dir)
+    keys = [(r["name"], r["shape_bucket"]) for r in programs]
+    built = sorted(e[1] for e in compiles.events)
+    camp = {"warmed": [x["stage"] for x in warm.warmed],
+            "errors": warm.errors, "probed": len(warm.shapes),
+            "compile_counts": compiles.snapshot(),
+            "compile_events": compiles.events,
+            "tuning_cache_hits": tuning_hits,
+            "programs": [{k: r.get(k) for k in (
+                "name", "shape_bucket", "argument_bytes", "output_bytes",
+                "temp_bytes")} for r in programs]}
+    want_built = sorted(("masked_fill", "rolling_median")) if on_card \
+        else []
+    bad = []
+    if warm.errors or not warm.done or len(warm.shapes) != len(files):
+        bad.append("warm-up")
+    if sorted(camp["warmed"]) != ["AtmosphereRemoval",
+                                  "Level1AveragingGainCorrection"]:
+        bad.append("warmed stages")
+    if built != want_built or any(e[2] != "campaign-warmup"
+                                  for e in compiles.events):
+        bad.append("library builds")
+    if tuning_src and not tuning_hits:
+        bad.append("tuning consult")
+    if len(set(keys)) != len(keys) or {k[0] for k in keys} != {
+            "atmosphere.scan_fit", "level1.reduce_feeds"} or (
+            on_card and any(r.get("temp_bytes") is None for r in programs)):
+        bad.append("program records")
+    if bad:
+        raise SystemExit(f"synth full campaign: {bad}: {camp}")
     state = run_state(runner, files)
     probes = {f: memsource.probe_virtual(f) for f in files}
     memsource.clear_registry()
@@ -6017,7 +6123,7 @@ def phase_synth_full(device: str = "cuda", base=None, **overrides) -> dict:
             "rolling_median_windows": n_files * (F + 1),
             "binned_window_sum": 0, "windowed_gather": 0}
     line = {"scenario": dataclasses.asdict(cfg), "vane_pad": pad,
-            "chain_s": chain_s,
+            "chain_s": chain_s, "campaign": camp,
             "files": per_file, "leases": state["leases"],
             "launches": launches, "launches_derived": want,
             "samples_a_file": [int(np.prod(m["tod_shape"]))
@@ -6034,11 +6140,13 @@ def phase_synth_full(device: str = "cuda", base=None, **overrides) -> dict:
     return line
 
 
-def phase_synthetic() -> dict:
+def phase_synthetic(tuning_src=None) -> dict:
     """Phase L: L.1 (:func:`phase_transfer`) then L.2
-    (:func:`phase_synth_full`) on the card."""
+    (:func:`phase_synth_full`, over the winners file ``tuning_src``) on
+    the card."""
     t0 = time.perf_counter()
-    out = {"transfer": phase_transfer(), "full": phase_synth_full()}
+    out = {"transfer": phase_transfer(),
+           "full": phase_synth_full(tuning_src=tuning_src)}
     out["phase_s"] = time.perf_counter() - t0
     log(f"phase L {out['phase_s']:.1f} s")
     return out
@@ -6679,6 +6787,461 @@ def phase_observability(store, joint_maps, untraced_wall,
     return out
 
 
+# Phase N: polarized destriping and the autotuner on the card. N.1 holds
+# the card to the CPU at FIELD_SMALL, N.2 runs the production polarized
+# solve at full width (K3 at R = 10, 7, 3 and 1), N.3 the tuner: a
+# solver sweep on the full field's band 0, a stage sweep at phase L.2's
+# bucket (which L.2 then consults) and the map-maker's [Tuning] consult.
+POL_DIR = os.path.join(ROOT, "chiprun_out", "pol_tuning")
+# N.1's card-against-CPU limits (offsets, destriped maps, naive maps).
+# The scatter oracle takes the reference test's planned-against-scatter
+# tolerances (tests/test_polarization.py:105-114). The planned solve is
+# held wider: at FIELD_SMALL the floored-Jacobi CG stops near 1e-5 on
+# pixels of little angle diversity, whose near-singular 3 x 3 inverses
+# amplify rounding. Measured: rounding its K3 sums once in f64 instead
+# of in f32 moves its offsets 0.7e-3 to 0.9e-3, its destriped maps
+# 3.7e-3 and its naive maps 3.1e-4 at 40 to 100 iterations
+# (tests/torch_pol_spread.py, on the CPU); the card against the CPU gave
+# offsets 2.0e-3, destriped maps 6.1e-3 and naive maps 2.0e-4 (on an
+# H100). About 2.5, 3 and 5 times those.
+POL_ATOL = {"scatter": (2e-3, 2e-3, 1e-3), "planned": (5e-3, 2e-2, 1e-3)}
+# the production budget of the planned solve's docstring
+POL_N_ITER = 150
+POL_SMALL_ITER = 100
+# the bench's sweep settings (bench.py:2625-2690), two repeats to fit
+# the phase's budget: a candidate's best of two timed solves, not three
+TUNE_N_ITER = 60
+TUNE_MAX_CANDIDATES = 6
+TUNE_REPEATS = 2
+# the documented campaign quanta (docs/OPERATIONS.md §9) L.2 runs under
+CAMPAIGN = {"t_quantum": 4096, "scan_quantum": 4, "l_quantum": 1024}
+
+
+def pol_psi(n: int) -> np.ndarray:
+    """The demo's polarization angle over ``n`` samples
+    (``examples/polarization_demo.py:29``): ``linspace(0, pi)`` plus
+    ``0.3 sin(i / 77)``."""
+    return (np.linspace(0, np.pi, n)
+            + 0.3 * np.sin(np.arange(n) / 77.0)).astype(np.float32)
+
+
+def pol_band(pixels, npix: int, n_groups: int, seed: int) -> dict:
+    """A polarized TOD over ``pixels`` (numpy, from ``seed``): I of rms 1,
+    Q and U of rms 0.3 seen through ``pol_psi``, 1/f offsets (a random
+    walk of 0.05 an offset in each of the ``n_groups`` equal streams, as
+    the field run's), white noise of 0.1, unit weights."""
+    from comapreduce_tpu_torch.fieldrun import OFFSET_LENGTH
+
+    rng = np.random.default_rng([seed, 0])
+    n = pixels.size
+    I = rng.normal(0.0, 1.0, npix)
+    Q = 0.3 * rng.normal(size=npix)
+    U = 0.3 * rng.normal(size=npix)
+    psi = pol_psi(n)
+    offsets = np.cumsum(rng.normal(0.0, 0.05, (
+        n_groups, n // OFFSET_LENGTH // n_groups)), axis=1).reshape(-1)
+    tod = (I[pixels] + Q[pixels] * np.cos(2 * psi)
+           + U[pixels] * np.sin(2 * psi)
+           + np.repeat(offsets, OFFSET_LENGTH)
+           + rng.normal(0.0, 0.1, n)).astype(np.float32)
+    return {"tod": tod, "weights": np.ones(n, np.float32), "psi": psi,
+            "I": I, "Q": Q, "U": U}
+
+
+def pol_gaps(got, want) -> dict:
+    """Largest card-against-CPU gaps of two polarized results (offsets,
+    destriped and naive maps on the pixels solvable in both), and the
+    solvable and hit maps' agreement."""
+    g = {k: getattr(got, k).cpu().numpy() for k in got._fields}
+    w = {k: getattr(want, k).cpu().numpy() for k in want._fields}
+    both = g["solvable"] & w["solvable"]
+    return {"offsets": float(np.abs(g["offsets"] - w["offsets"]).max()),
+            "iqu_destriped": float(np.abs(
+                g["iqu_destriped"][both] - w["iqu_destriped"][both]).max()),
+            "iqu_naive": float(np.abs(
+                g["iqu_naive"][both] - w["iqu_naive"][both]).max()),
+            "hits_equal": bool(np.array_equal(g["hit_map"], w["hit_map"])),
+            "solvable_differ": int((g["solvable"] != w["solvable"]).sum()),
+            "n_solvable": int(w["solvable"].sum()),
+            "n_iter": [int(g["n_iter"]), int(w["n_iter"])],
+            "residual": [float(g["residual"]), float(w["residual"])]}
+
+
+def phase_pol_small(devices=("cuda", "cpu")) -> dict:
+    """N.1: ``destripe_pol_planned`` and ``destripe_pol`` on FIELD_SMALL's
+    band-0 pointing with a polarized TOD (:func:`pol_band`), on
+    ``devices`` (the card, then the CPU): offsets, destriped and naive
+    maps (on the pixels solvable in both) within ``POL_ATOL``, hit maps
+    equal (the solvable masks' differences reported: a pixel at the
+    ``det > 1e-6`` threshold may flip); on the card the planned solve
+    launches K3 ``7 + 2 k`` times."""
+    import torch
+
+    from comapreduce_tpu_torch.fieldrun import (FIELD_SMALL, OFFSET_LENGTH,
+                                                field_geometry)
+    from comapreduce_tpu_torch.mapmaking.cuda_binning import \
+        binned_window_sum
+    from comapreduce_tpu_torch.mapmaking.pointing_plan import \
+        build_pointing_plan
+    from comapreduce_tpu_torch.mapmaking.polarization import (
+        destripe_pol, destripe_pol_planned)
+
+    pix = field_geometry(FIELD_SMALL)[0]
+    npix = FIELD_SMALL.nx * FIELD_SMALL.ny
+    d = pol_band(pix, npix, FIELD_SMALL.n_groups, 11)
+    plan = build_pointing_plan(pix, npix, OFFSET_LENGTH)
+    out = {}
+    for path in ("planned", "scatter"):
+        res = {}
+        for dev in devices:
+            binned_window_sum.launches = 0
+            if path == "planned":
+                res[dev] = destripe_pol_planned(
+                    d["tod"], d["weights"], d["psi"], plan,
+                    n_iter=POL_SMALL_ITER, device=dev)
+            else:
+                res[dev] = destripe_pol(
+                    d["tod"], pix, d["weights"], d["psi"], npix,
+                    offset_length=OFFSET_LENGTH, n_iter=POL_SMALL_ITER,
+                    device=dev)
+            if dev == devices[0]:
+                first = res[dev]
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                k3 = binned_window_sum.launches
+        gaps = pol_gaps(first, res[devices[1]])
+        gaps["k3_launches"] = k3
+        out[path] = gaps
+        want_k3 = 7 + 2 * gaps["n_iter"][0] if (
+            path == "planned" and devices[0] == "cuda") else 0
+        off_atol, map_atol, naive_atol = POL_ATOL[path]
+        if (gaps["offsets"] > off_atol or gaps["iqu_destriped"] > map_atol
+                or gaps["iqu_naive"] > naive_atol
+                or not gaps["hits_equal"] or k3 != want_k3
+                or not gaps["n_solvable"]):
+            raise SystemExit(f"pol small {path}: card against CPU {gaps}, "
+                             f"K3 {k3} launches, derived {want_k3}")
+    log("pol_small", json.dumps(out))
+    return out
+
+
+def phase_pol_full(field_plan, geo, device: str = "cuda") -> tuple:
+    """N.2: ``destripe_pol_planned`` on the full field's band-0 pointing
+    (4 observations x 19 feeds x 135 700 samples, the 480 x 480 plan) with
+    I, Q, U and 1/f offsets injected (:func:`pol_band`), POL_N_ITER
+    iterations, twice: the second run the first's bits; the outputs
+    finite, the solvable mask not empty, K3's launches of the first run
+    ``7 + 2 k`` (R = 10 once, R = 7 once, R = 3 ``k + 2`` times, R = 1
+    ``k + 3`` times). Reports the recovered Q and U error against the
+    injection, the walls and the peak. Returns the line and the
+    launches. (``device="cpu"`` rehearses it on a small plan.)"""
+    import torch
+
+    from comapreduce_tpu_torch.mapmaking.polarization import \
+        destripe_pol_planned
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    d = pol_band(geo[0], field_plan.npix, int(geo[1].max()) + 1, 13)
+    gen_s = time.perf_counter() - t0
+    args = [torch.as_tensor(d[k], device=device)
+            for k in ("tod", "weights", "psi")]
+    counters = kernel_counters()
+    runs, launches, walls = [], None, []
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        for fn in counters:
+            fn.launches = 0
+        t1 = _now(device)
+        res = destripe_pol_planned(*args, field_plan, n_iter=POL_N_ITER,
+                                   device=device)
+        walls.append(_now(device) - t1)
+        if launches is None:
+            launches = {fn.__name__: fn.launches for fn in counters}
+        runs.append(res)
+    k = int(runs[0].n_iter)
+    want = {"masked_fill": 0, "rolling_median_windows": 0,
+            "binned_window_sum": 7 + 2 * k if on_card else 0,
+            "windowed_gather": 0}
+    same = all(bits_equal(getattr(runs[0], f), getattr(runs[1], f))
+               for f in ("offsets", "iqu_destriped", "iqu_naive",
+                         "hit_map")) and \
+        torch.equal(runs[0].solvable, runs[1].solvable)
+    r = runs[0]
+    ok = r.solvable.cpu().numpy()
+    m = r.iqu_destriped.cpu().numpy()
+    finite = all(bool(torch.isfinite(getattr(r, f)).all()) for f in (
+        "offsets", "iqu_destriped", "iqu_naive", "hit_map", "residual"))
+    line = {"samples": int(geo[0].size), "n_rank": field_plan.n_rank,
+            "n_iter": k, "residual": float(r.residual),
+            "data_gen_s": gen_s, "solve_s": walls, "launches": launches,
+            "launches_derived": want, "bitwise_rerun": bool(same),
+            "n_solvable": int(ok.sum()),
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                             if on_card else None)}
+    for j, s in enumerate("IQU"):
+        line[f"{s}_median_abs_err"] = float(np.median(np.abs(
+            m[ok, j] - d[s][ok])))
+        line[f"{s}_rms_injected"] = float(np.std(d[s][ok]))
+    log("pol_full", json.dumps(line))
+    if not (same and finite and ok.any() and launches == want):
+        raise SystemExit(f"pol full: bitwise {same}, finite {finite}, "
+                         f"solvable {int(ok.sum())}, launches {launches} "
+                         f"against {want}")
+    return line, launches
+
+
+def stage_sweep_bucket(**overrides) -> tuple:
+    """Phase L.2's stage bucket ``(F, B, C, Tb, Sb, Lb)``: its members
+    probed (``probe_virtual``) and canonicalised under CAMPAIGN; they
+    must fall in one bucket."""
+    from comapreduce_tpu_torch.ops.reduce import ShapeBuckets
+    from comapreduce_tpu_torch.pipeline.campaign import campaign_bucket_set
+    from comapreduce_tpu_torch.synthetic import memsource
+    from comapreduce_tpu_torch.synthetic.generator import virtual_filelist
+    from comapreduce_tpu_torch.synthetic.scenario import ScenarioConfig
+
+    cfg = memsource.register_scenario(ScenarioConfig.coerce(
+        dict(SYNTH_FULL, **overrides)))
+    try:
+        shapes = [memsource.probe_virtual(p) for p in virtual_filelist(cfg)]
+    finally:
+        memsource.clear_registry()
+    buckets = campaign_bucket_set(shapes, ShapeBuckets(**CAMPAIGN))
+    if len(buckets) != 1:
+        raise SystemExit(f"L.2's members fall in {len(buckets)} buckets: "
+                         f"{sorted(buckets)}")
+    return next(iter(buckets))[:6], shapes
+
+
+def multigrid_builds(data, blocks=(8, 16, 32)) -> dict:
+    """``{block: future}`` of the two-level multigrid hierarchies of
+    ``data`` (patterns and build on the host, ``offset_length`` 50), each
+    on a thread of its own, started at once: the solver sweep's
+    candidates, built while the card works on N.1 and N.2."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from comapreduce_tpu_torch.fieldrun import OFFSET_LENGTH
+    from comapreduce_tpu_torch.mapmaking.destriper import (
+        build_multigrid_hierarchy, multigrid_patterns)
+
+    def build(b):
+        t0 = time.perf_counter()
+        pats = multigrid_patterns(data.pixels, data.npix, OFFSET_LENGTH,
+                                  block=b, levels=2)
+        hier = build_multigrid_hierarchy(
+            data.pixels, data.weights, data.npix, OFFSET_LENGTH, block=b,
+            levels=2, patterns=pats)
+        return hier, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(max_workers=len(blocks),
+                              thread_name_prefix="mg-build")
+    futures = {b: pool.submit(build, b) for b in blocks}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def phase_tuning(band0, field_plan, store_small, stage_log,
+                 device: str = "cuda", mg_builds=None,
+                 **scenario) -> dict:
+    """N.3: the autotuner on the card, its winners in
+    ``chiprun_out/pol_tuning/tuning.jsonl``.
+
+    - the ``solver`` group (mg_block x mg_smooth) on the full field's
+      band 0, offsets only, multigrid ``destripe_planned`` at TUNE_N_ITER
+      iterations (the bench's sweep): each candidate's hierarchy built on
+      the host outside the timed solves, each thunk synchronised;
+    - the ``stage`` group (feed_batch) at L.2's bucket: the atmosphere
+      fit of ``AtmosphereRemoval`` over its 19 feeds in the candidate's
+      chunks, on one card-made feed block;
+    - a second ``Tuner`` on the same cache: 0 measurements, every sweep a
+      hit; ``invalid_proposed`` 0 in both;
+    - ``cli.run_destriper.main`` on phase F's small store with
+      ``[Destriper] preconditioner = multigrid``, untuned and then with
+      ``[Tuning] enabled`` over the winners: the tuned run logs the
+      applied winners, and its maps agree with the untuned run's, each
+      pointing component's constant aside (:func:`component_gap`),
+      within 10 times the larger residual the two solves reached (of the
+      map's scale).
+
+    ``mg_builds``: :func:`multigrid_builds` of ``band0`` started earlier
+    (default: started here). ``device="cpu"`` with a small band, plan
+    and ``scenario`` (knobs of L.2's scenario) rehearses the phase on
+    the CPU."""
+    import torch
+
+    from comapreduce_tpu_torch.cli.run_destriper import main as rd_main
+    from comapreduce_tpu_torch.fieldrun import OFFSET_LENGTH
+    from comapreduce_tpu_torch.mapmaking.destriper import destripe_planned
+    from comapreduce_tpu_torch.ops.atmosphere import fit_atmosphere_segments
+    from comapreduce_tpu_torch.ops.reduce import (device_hbm_bytes,
+                                                  stage_feed_batches)
+    from comapreduce_tpu_torch.ops.segment import plan_segments
+    from comapreduce_tpu_torch.tuning import (TUNING, SpaceContext, Tuner,
+                                              TuningCache, solver_bucket,
+                                              stage_bucket, tuning_path)
+    from comapreduce_tpu_torch.tuning.cache import _backend_identity
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(POL_DIR, ignore_errors=True)
+    os.makedirs(POL_DIR)
+    platform, kind = _backend_identity()
+    L = OFFSET_LENGTH
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    hbm = device_hbm_bytes(device=dev)
+    tod = torch.as_tensor(band0.tod, device=dev)
+    w = torch.as_tensor(band0.weights, device=dev)
+    mg_builds = mg_builds or multigrid_builds(band0)
+    hier, host_s = {}, {}
+
+    def solver_thunk(combo):
+        b = int(combo["mg_block"])
+        if b not in hier:
+            hier[b], host_s[b] = mg_builds[b].result()
+
+        def thunk():
+            destripe_planned(tod, w, field_plan, n_iter=TUNE_N_ITER,
+                             threshold=1e-6, mg=hier[b],
+                             mg_smooth=int(combo["mg_smooth"]))
+            if on_card:
+                torch.cuda.synchronize()
+        return thunk
+
+    (F, B, C, Tb, Sb, Lb), _ = stage_sweep_bucket(**scenario)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    raw = 1e7 * (1 + 0.01 * torch.randn((B, C, Tb), generator=g,
+                                        device=dev))
+    am = 1.0 + torch.rand(Tb, generator=g, device=dev)
+    seg = np.repeat(np.arange(Sb, dtype=np.int32), -(-Tb // Sb))[:Tb]
+    seg_plan = plan_segments(seg, Sb)
+    seg_t = torch.as_tensor(seg, device=dev)
+    mask = torch.ones_like(raw)
+
+    def stage_thunk(combo):
+        def thunk():
+            # AtmosphereRemoval's loop over the planner's chunks: the
+            # stage fits one feed at a time whatever the chunk
+            for idx in stage_feed_batches(F, B, C, Tb,
+                                          int(combo["feed_batch"]),
+                                          hbm_bytes=hbm):
+                for _ in idx:
+                    fit_atmosphere_segments(raw, am, seg_t, mask,
+                                            n_scans=Sb, plan=seg_plan)
+            if on_card:
+                torch.cuda.synchronize()
+        return thunk
+
+    cache_path = tuning_path(POL_DIR)
+    sweeps = [
+        ("solver", solver_bucket(L),
+         SpaceContext(n_samples=int(band0.tod.size), offset_length=L,
+                      platform=platform, hbm_bytes=hbm),
+         solver_thunk, {"mg_block": 8, "mg_smooth": 1}),
+        ("stage", stage_bucket(F, B, C, Tb, 1),
+         SpaceContext(F=F, B=B, C=C, T=Tb, S=Sb, L=Lb, platform=platform,
+                      hbm_bytes=hbm),
+         stage_thunk, {"feed_batch": F}),
+    ]
+    tuners, recs = [], {}
+    for round_ in range(2):
+        tuner = Tuner(TuningCache(cache_path), platform, kind,
+                      max_candidates=TUNE_MAX_CANDIDATES,
+                      repeats=TUNE_REPEATS)
+        t0 = time.perf_counter()
+        for group, bucket, ctx, build, default in sweeps:
+            recs[(group, round_)] = tuner.tune(group, bucket, ctx, build,
+                                               default)
+        tuners.append({"wall_s": time.perf_counter() - t0,
+                       "measurements": tuner.measurements,
+                       "cache_hits": tuner.cache_hits,
+                       "cache_misses": tuner.cache_misses,
+                       "invalid_proposed": tuner.invalid_proposed,
+                       "pruned": tuner.pruned})
+    cold, warm = tuners
+    if (cold["invalid_proposed"] or warm["invalid_proposed"]
+            or warm["measurements"] or warm["cache_hits"] != len(sweeps)
+            or cold["cache_misses"] != len(sweeps)):
+        raise SystemExit(f"tuning: cold sweep {cold}, warm {warm}")
+    winners = {group: recs[(group, 0)] for group, *_ in sweeps}
+    del hier, tod, w, raw, mask
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the map-maker's [Tuning] consult on phase F's small store
+    name = "Level2_comap-0000007.hd5"
+    filelist = os.path.join(POL_DIR, "l2list.txt")
+    with open(filelist, "w") as fh:
+        fh.write(name + "\n")
+    maps, runs, datas = {}, {}, {}
+    for tag in ("untuned", "tuned"):
+        out = os.path.join(POL_DIR, tag)
+        logs = os.path.join(out, "logs")
+        os.makedirs(logs)
+        sections = {"Destriper": {"preconditioner": "multigrid"}}
+        if tag == "tuned":
+            shutil.copy(cache_path, tuning_path(logs))
+            sections["Tuning"] = {"enabled": "true"}
+        ini = shipped_destriper_ini(filelist, out,
+                                    os.path.join(POL_DIR, f"{tag}.ini"),
+                                    SMALL_FIELD, sections=sections,
+                                    bands=[0, 1], log_dir=logs)
+        stage_log.clear()
+        try:
+            with ServedLevel2({name: store_small}), \
+                    MainProbe(device) as probe:
+                if rd_main([ini, f"--device={device}"]) != 0:
+                    raise SystemExit(f"tuning: main ({tag}) failed")
+        finally:
+            TUNING.close()
+        maps[tag] = [wr["maps"] for wr in probe.writes]
+        datas[tag] = [probe.datas[b] for b in sorted(probe.datas)]
+        runs[tag] = {"cg_iters": [wr["n_iter"] for wr in probe.writes],
+                     "residual": [wr["residual"] for wr in probe.writes],
+                     "applied": [x for x in stage_log.warnings
+                                 if "applying measured winners" in x]}
+    res_max = max(runs["tuned"]["residual"] + runs["untuned"]["residual"])
+    gap = max(component_gap(t, u, d, L) for t, u, d in zip(
+        maps["tuned"], maps["untuned"], datas["untuned"]))
+    win = winners["solver"]["winner"]
+    want_log = (f"mg_block={win['mg_block']}, "
+                f"mg_smooth={win['mg_smooth']}")
+    line = {"cold": cold, "warm": warm, "hierarchy_host_s": host_s,
+            "winners": {k: {f: v.get(f) for f in (
+                "winner", "default", "best_ms", "default_ms", "candidates",
+                "measurements", "walls_ms")} for k, v in winners.items()},
+            "stage_bucket": [F, B, C, Tb, Sb, Lb], "consult": runs,
+            "map_gap_of_scale": gap, "gap_limit": 10 * res_max,
+            "cache": cache_path}
+    line["phase_s"] = time.perf_counter() - t_phase
+    log("tuning", json.dumps(line))
+    if not (runs["tuned"]["applied"] and
+            want_log in runs["tuned"]["applied"][0]
+            and not runs["untuned"]["applied"]
+            and gap <= 10 * res_max):
+        raise SystemExit(f"tuning: the [Tuning] consult {runs}, map gap "
+                         f"{gap} against 10 x residual {res_max}")
+    return line
+
+
+def phase_pol_tuning(field_plan, geo, band0, store_small,
+                     stage_log) -> dict:
+    """Phase N: N.1 (:func:`phase_pol_small`), N.2
+    (:func:`phase_pol_full`), N.3 (:func:`phase_tuning`) on the card."""
+    t0 = time.perf_counter()
+    # N.3's host builds run on threads while N.1 and N.2 use the card
+    builds = multigrid_builds(band0)
+    out = {"small": phase_pol_small()}
+    out["full"], out["launches"] = phase_pol_full(field_plan, geo)
+    out["tuning"] = phase_tuning(band0, field_plan, store_small, stage_log,
+                                 mg_builds=builds)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase N {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     env = phase_environment()
@@ -6736,7 +7299,6 @@ def main() -> int:
         geo, field_plan, stage_log, report["field"])
     report["mg_field_profile"] = phase_field_mg_profile(band0, stage_log)
     lap("field_A_C")
-    del band0
     report["banded_field"], bands_1f, hand_joint = phase_field_banded(
         geo, field_plan, stage_log)
     report["joint_products"] = phase_joint_products(stage_log, bands_1f,
@@ -6771,7 +7333,7 @@ def main() -> int:
                                          stage_log), chain=ingest_chain)
     report["ingest_s"] = time.perf_counter() - t0
     lap("ingest_I")
-    del store_small, cal_store
+    del cal_store
     t0 = time.perf_counter()
     report["drill"] = phase_drill()
     report["drill_s"] = time.perf_counter() - t0
@@ -6784,7 +7346,14 @@ def main() -> int:
         store_full, joint_maps, report["reader_full"]["joint"]["wall_s"])
     del store_full, joint_maps
     lap("observability_M")
-    report["synthetic"] = phase_synthetic()
+    # phase N while the field plan is in scope, before L.2 consults its
+    # stage winner
+    report["pol_tuning"] = phase_pol_tuning(field_plan, geo, band0,
+                                            store_small, stage_log)
+    del band0, store_small
+    lap("pol_tuning_N")
+    report["synthetic"] = phase_synthetic(
+        tuning_src=report["pol_tuning"]["tuning"]["cache"])
     lap("synthetic_L")
     launches["windowed_gather"] = field_launches["windowed_gather"]
     report["field_launches"] = field_launches
@@ -6792,6 +7361,7 @@ def main() -> int:
     for k, v in kernels.items():
         v["launches"] = launches[k]
         v["phase_m_launches"] = report["observability"]["launches"][k]
+        v["phase_n_launches"] = report["pol_tuning"]["launches"][k]
     report["kernels"] = list(kernels.values())
     report["phase_walls_s"] = walls
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -6800,7 +7370,7 @@ def main() -> int:
         json.dump(report, fh, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "phase_m_launches")
+            "phase_m_launches", "phase_n_launches")
     print(json.dumps({"kernels": [{k: v[k] for k in keys}
                                   for v in kernels.values()]}))
     print(smi_line())

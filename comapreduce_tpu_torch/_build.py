@@ -11,7 +11,17 @@ rebuilds and an unchanged one loads straight away.
 
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them together. A missing ``nvcc`` or a failed build raises; there is no
-fallback.
+fallback. Builds are serialised by one lock, so a campaign warm-up
+thread and the main path never run ``nvcc`` on the same library twice.
+
+These libraries are what the port compiles (eager PyTorch compiles no
+programs), so they are its persistent compile cache:
+:func:`set_build_dir` (``pipeline.campaign.enable_compile_cache``, the
+``[ingest] compile_cache_dir`` knob) points the library directory
+elsewhere, and a second process finds the libraries there without a
+build. Every build and every library found on disk is reported to the
+listeners of :func:`add_listener` (``pipeline.campaign.CompileCounter``
+and the telemetry stream).
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after the launch; the
@@ -25,10 +35,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 __all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build", "library", "nvcc_path",
-           "build_dir", "c_function", "check"]
+           "build_dir", "set_build_dir", "add_listener", "remove_listener",
+           "c_function", "check"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: one shared library per source, each with its own C entry points
@@ -37,14 +50,52 @@ KERNEL_SOURCES = ("masked_fill", "rolling_median", "binned_window_sum",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: loaded libraries by path: a library of another directory (another
+#: compile cache) is found or built there on its first use
 _loaded: dict[str, ctypes.CDLL] = {}
+#: the loaded library of each source in the current directory (what a
+#: launch looks up)
+_active: dict[str, ctypes.CDLL] = {}
+_DEFAULT_DIR = Path(__file__).resolve().parent.parent / "build" / \
+    "comapreduce_tpu_torch"
 #: ptxas resource reports (registers, shared memory, spills) per build
 build_logs: dict[str, str] = {}
+_lock = threading.RLock()
+_dir_override: Path | None = None
+_source_hash: dict[str, str] = {}
+_listeners: list = []
 
 
 def build_dir() -> Path:
-    return Path(__file__).resolve().parent.parent / "build" / \
-        "comapreduce_tpu_torch"
+    """The library directory: :func:`set_build_dir`'s, else
+    ``build/comapreduce_tpu_torch/`` at the checkout root."""
+    return _DEFAULT_DIR if _dir_override is None else _dir_override
+
+
+def set_build_dir(path) -> None:
+    """Point the library directory at ``path`` (``None``: the default)."""
+    global _dir_override
+    with _lock:
+        _dir_override = None if path is None else Path(path).resolve()
+        _active.clear()
+
+
+def add_listener(fn) -> None:
+    """Call ``fn(event, name, seconds)`` on every ``"build"`` (one
+    ``nvcc`` run, ``seconds`` its wall) and every ``"found"`` (a library
+    loaded from disk without a build), on the thread that made it."""
+    if fn not in _listeners:
+        _listeners.append(fn)
+
+
+def remove_listener(fn) -> None:
+    if fn in _listeners:
+        _listeners.remove(fn)
+
+
+def _notify(event: str, name: str, seconds: float = 0.0) -> None:
+    for fn in list(_listeners):
+        fn(event, name, seconds)
 
 
 def nvcc_path() -> str:
@@ -63,50 +114,63 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256()
-    for f in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+    """The library of one source in the current directory; the hash of
+    the sources, shared headers and flags is taken once a process."""
+    digest = _source_hash.get(name)
+    if digest is None:
+        h = hashlib.sha256()
+        for f in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        digest = _source_hash[name] = h.hexdigest()[:16]
+    return build_dir() / f"lib{name}-{digest}.so"
 
 
 def build(names=KERNEL_SOURCES) -> dict[str, ctypes.CDLL]:
     """Compile (in parallel) and load every named kernel library."""
-    todo = [n for n in names if n not in _loaded]
-    procs = []
-    for name in todo:
-        out = _lib_path(name)
-        if out.is_file():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               str(_CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (rc={proc.returncode})\n{log}")
-            continue
-        os.replace(tmp, out)     # atomic: a concurrent loader never sees
-        #                          a half-written library
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    for name in todo:
-        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
-    return {n: _loaded[n] for n in names}
+    with _lock:
+        paths = {n: _lib_path(n) for n in names}
+        todo = [n for n in names if str(paths[n]) not in _loaded]
+        procs = []
+        for name in todo:
+            out = paths[name]
+            if out.is_file():
+                _notify("found", name)
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(_CSRC), "-o",
+                   str(tmp), str(_CSRC / f"{name}.cu")]
+            procs.append((name, out, tmp, time.perf_counter(),
+                          subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+        failed = []
+        for name, out, tmp, t0, proc in procs:
+            log, _ = proc.communicate()
+            build_logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"--- {name}.cu (rc={proc.returncode})\n{log}")
+                continue
+            os.replace(tmp, out)     # atomic: a concurrent loader never
+            #                          sees a half-written library
+            _notify("build", name, time.perf_counter() - t0)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        for name in todo:
+            _loaded[str(paths[name])] = ctypes.CDLL(str(paths[name]))
+        for name in names:
+            _active[name] = _loaded[str(paths[name])]
+        return {n: _active[n] for n in names}
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel source, built on first use."""
-    if name not in _loaded:
-        build((name,))
-    return _loaded[name]
+    lib = _active.get(name)
+    if lib is None:
+        lib = build((name,))[name]
+    return lib
 
 
 def c_function(name: str, symbol: str, argtypes):

@@ -9,7 +9,9 @@ configured stage chain through :class:`~..pipeline.runner.Runner` and
 writes ``Level2_*.hd5`` into ``[Global] output_dir``, with per-rank logs
 and the run state (quarantine ledger, heartbeat, leases, quality ledger)
 in ``log_dir``. The stages run on the card; ``--device=cpu`` runs the
-plain versions on the CPU. The port runs as rank 0 of 1. With
+plain versions on the CPU. The rank and the number of ranks are
+``COMAP_RANK`` / ``COMAP_NRANKS`` when both are set (as ``cli.batchrun``
+sets them), else 0 of 1. With
 ``[Global] calibrator_filelist`` (Level-1 paths of calibrator
 observations reduced in the same run, ``"FitSource"`` among the
 processes) a second pass writes the nearest calibrator's factors into
@@ -37,6 +39,7 @@ import sys
 from comapreduce_tpu_torch.pipeline import Runner, load_toml, set_logging
 from comapreduce_tpu_torch.pipeline.config import read_filelist
 from comapreduce_tpu_torch.pipeline.runner import level2_path
+from comapreduce_tpu_torch.pipeline.stages import rank_info
 from comapreduce_tpu_torch.telemetry import TELEMETRY
 from comapreduce_tpu_torch.telemetry.report import format_duration_table
 
@@ -73,7 +76,7 @@ def main(argv=None, device=None) -> int:
         config = dict(config)
         config["resilience"] = dict(config.get("resilience", {}),
                                     retry_quarantined=True)
-    rank, n_ranks = 0, 1
+    rank, n_ranks = rank_info()
     log_dir = str(glob.get("log_dir", "") or
                   os.path.join(str(glob.get("output_dir", ".")), "logs"))
     runner = Runner.from_config(config, rank=rank, n_ranks=n_ranks,
@@ -86,9 +89,9 @@ def main(argv=None, device=None) -> int:
             if hasattr(p, "figure_dir"):
                 p.figure_dir = figure_dir
     live = None
-    if live_port is not None:
+    if live_port is not None and rank == 0:
         # the plane reads every rank's on-disk state: one sidecar per
-        # campaign is the whole picture
+        # campaign (rank 0's) is the whole picture
         from comapreduce_tpu_torch.telemetry.live import LiveServer
 
         live = LiveServer(runner.state_dir or runner.output_dir,

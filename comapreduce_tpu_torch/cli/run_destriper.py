@@ -68,18 +68,22 @@ observability sidecar (:class:`~comapreduce_tpu_torch.telemetry.live.
 LiveServer`) over the state directory while the run goes on.
 
 ``[Control] solver_policy`` re-picks the preconditioner rung from this
-state directory's solver traces and the run registry
+state directory's solver traces, the run registry, the program records
+and the ``[Tuning]`` winners
 (:func:`~comapreduce_tpu_torch.control.policy.choose_solver`, every
-override an auditable ``control.decision``); its program-cost and
-``[Tuning]`` sources are not ported.
+override an auditable ``control.decision``).
+
+``[Tuning]`` opens the winners cache (:data:`~comapreduce_tpu_torch.
+tuning.TUNING`) in the state directory; a ``solver`` winner for this
+offset length sets ``mg_block`` / ``mg_smooth`` where ``[Destriper]``
+leaves them to the default, each applied value logged. A winner value
+the port does not run (a ``kernels`` other than ``auto``, written by the
+reference) is logged and skipped. ``[Inputs] compile_cache_dir`` keeps
+the kernel libraries there (``pipeline.campaign.enable_compile_cache``).
 
 Not ported (``NotImplementedError``, naming the knob): ``sharded``;
 ``kernels`` other than ``auto`` (they select TPU implementations); and in
-:func:`main` more than one rank (``COMAP_NRANKS``), ``[Inputs]
-compile_cache_dir`` (XLA's persistent compilation cache) and
-``[Tuning]``. The rules are those of
-:func:`~comapreduce_tpu_torch.pipeline.runner.unported_knobs`, the INI
-sections mapped onto its tables.
+:func:`main` more than one rank (``COMAP_NRANKS``).
 """
 
 from __future__ import annotations
@@ -997,31 +1001,6 @@ def _aslist(v):
     return v if isinstance(v, list) else [v]
 
 
-# the INI sections whose knobs runner.unported_knobs judges, and the
-# table each maps onto; [Inputs] is mixed, so only its ingest knobs go
-_INI_TABLES = {"tuning": "Tuning"}
-
-
-def _unported_ini(ini) -> list[str]:
-    """``[Section] option`` names of the INI's set knobs whose machinery
-    the port lacks: :func:`~comapreduce_tpu_torch.pipeline.runner.
-    unported_knobs` over the sections mapped onto its tables."""
-    from comapreduce_tpu_torch.ingest.config import IngestConfig
-    from comapreduce_tpu_torch.pipeline.runner import unported_knobs
-
-    inputs = ini.get("Inputs", {})
-    tables = {t: (dict(ini[s]) if s in ini else None)
-              for t, s in _INI_TABLES.items()}
-    tables["ingest"] = {k: inputs[k] for k in IngestConfig.KNOBS
-                        if k in inputs}
-    sections = dict(_INI_TABLES, ingest="Inputs")
-    bad = []
-    for name in unported_knobs(tables):
-        table, knob = name.split(".", 1)
-        bad.append(f"[{sections[table]}] {knob}")
-    return bad
-
-
 def main(argv=None, device=None) -> int:
     """The INI entry point (``run_destriper.py:1242``), as rank 0 of 1.
     ``--device=DEV`` (or ``device``) picks the device; default ``cuda``."""
@@ -1037,6 +1016,9 @@ def main(argv=None, device=None) -> int:
     from comapreduce_tpu_torch.telemetry.quality import (SloConfig,
                                                          flagged_files,
                                                          read_quality)
+    from comapreduce_tpu_torch.tuning import (TUNING, TuningConfig,
+                                              solver_bucket)
+    from comapreduce_tpu_torch.tuning.space import CANDIDATES
 
     argv = sys.argv[1:] if argv is None else argv
     retry_quarantined = False
@@ -1067,13 +1049,10 @@ def main(argv=None, device=None) -> int:
         raise NotImplementedError(
             f"COMAP_NRANKS={n_ranks}: several ranks (filelist shards, "
             "per-rank maps) are not ported; the port runs as rank 0 of 1")
-    bad = _unported_ini(ini)
     if bool(inputs.get("sharded", False)):
-        bad.append("[Inputs] sharded")
-    if bad:
         raise NotImplementedError(
-            "not ported: " + ", ".join(bad) + " (the port runs without "
-            "XLA's compile_cache_dir or [Tuning])")
+            "not ported: [Inputs] sharded (sharded reads and solves come "
+            "with parallel/)")
     dev = resolve_device(device)
     filelist = read_filelist(inputs["filelist"])
     out_dir = inputs.get("output_dir", ".")
@@ -1129,6 +1108,11 @@ def main(argv=None, device=None) -> int:
             "set compact : auto/true, or tod_dtype : f32")
     # [Inputs] ingest: read-ahead, and one cache across the band reads
     ingest_cfg = IngestConfig.from_mapping(inputs)
+    if ingest_cfg.compile_cache_dir:
+        from comapreduce_tpu_torch.pipeline.campaign import \
+            enable_compile_cache
+
+        enable_compile_cache(ingest_cfg.compile_cache_dir)
     prefetch = ingest_cfg.prefetch
     cache = ingest_cfg.make_cache()
     # [Resilience]: coerce, so a typo'd knob raises; the campaign
@@ -1144,6 +1128,43 @@ def main(argv=None, device=None) -> int:
     state_dir = str(inputs.get("log_dir", "") or
                     os.path.join(out_dir, "logs"))
     os.makedirs(state_dir, exist_ok=True)
+    # [Tuning] (default off): the winners cache. Enabled, the plan and
+    # stage planners consult it, and a solver winner for this offset
+    # length fills the multigrid knobs [Destriper] left to the default
+    # (run_destriper.py:1419): an explicit config value always wins
+    tuning_cfg = TuningConfig.coerce(dict(ini.get("Tuning", {})) or None)
+    if tuning_cfg.enabled:
+        TUNING.configure(state_dir, tuning_cfg)
+        win = TUNING.winner("solver", solver_bucket(offset_length))
+        if win:
+            destr_tuned = dict(destr_sec)
+            applied = []
+            if mg is not None:
+                for knob in ("mg_block", "mg_smooth"):
+                    val = win.get(knob)
+                    if val and knob not in destr_sec:
+                        destr_tuned[knob] = int(val)
+                        applied.append(f"{knob}={int(val)}")
+            if win.get("kernels") and "kernels" not in destr_sec:
+                if str(win["kernels"]) in CANDIDATES["kernels"]:
+                    destr_tuned["kernels"] = str(win["kernels"])
+                    applied.append(f"kernels={win['kernels']}")
+                else:
+                    # a reference-written winner names an implementation
+                    # of the JAX package: never make a cache file raise
+                    logger.warning(
+                        "[Tuning] winner kernels=%s for bucket L=%d "
+                        "skipped: the port runs kernels = auto",
+                        win["kernels"], offset_length)
+            if applied:
+                logger.warning("[Tuning] applying measured winners "
+                               "for bucket L=%d: %s", offset_length,
+                               ", ".join(applied))
+                precond, coarse_block, pair_batch, mg, kernels, \
+                    noise_weight = parse_destriper_section(
+                        destr_tuned,
+                        int(inputs.get("coarse_precond",
+                                       0 if calibrator else 8)))
     # [Control] solver_policy (default off): re-pick the preconditioner
     # rung from evidence — this state dir's solver traces and the
     # run-registry iteration delta — instead of trusting the static

@@ -13,21 +13,20 @@ loop picks them from evidence instead:
   median of the ``*cg_iters*`` registry metrics — a rung suddenly
   needing ``ESCALATE_RATIO`` times its historical iterations gets
   escalated one rung up the ladder before it shows up in wall clocks;
-- the **program cost model** (``programs.jsonl``), in the reference:
-  XLA's per-shape-bucket temp-memory counts (absent here, see below).
+- the **program cost model** (``programs.jsonl``,
+  :mod:`~comapreduce_tpu_torch.telemetry.programs`): a program whose
+  measured temporaries pass ``PAIR_TEMP_BUDGET`` halves a
+  ``pair_batch`` above 1 (the port's records are measured on eager
+  calls, the reference's read from XLA's buffer assignment);
+- the **[tuning] winners** (:data:`~comapreduce_tpu_torch.tuning.
+  TUNING`): a multigrid escalation with no ``mg_block`` configured takes
+  the cached ``solver`` winner for this offset length, else the
+  documented default of 8.
 
 Every override is recorded as an auditable ``control.decision`` event
 (loop ``solver``, action ``override``, carrying the knob, old and new
 values, and the evidence in the reason). No evidence → no overrides:
 the static config stands, byte-for-byte.
-
-Two of the reference's sources are absent from the port, so their rules
-never fire: the program cost model (``telemetry/programs``, XLA's
-compiled-program registry, is not ported; no ``programs.jsonl`` is read,
-so ``pair_batch`` is never halved) and the ``[tuning]`` winners
-(``tuning/`` is not ported; a multigrid escalation takes the documented
-default ``mg_block`` of 8, what the reference takes with ``[tuning]``
-off).
 """
 
 from __future__ import annotations
@@ -36,7 +35,8 @@ import logging
 
 from comapreduce_tpu_torch.control.decisions import record_decision
 
-__all__ = ["ESCALATE_RATIO", "RUNG_ORDER", "choose_solver", "rung_health"]
+__all__ = ["ESCALATE_RATIO", "PAIR_TEMP_BUDGET", "RUNG_ORDER",
+           "choose_solver", "rung_health"]
 
 logger = logging.getLogger("comapreduce_tpu_torch")
 
@@ -47,6 +47,12 @@ RUNG_ORDER = ("none", "jacobi", "twolevel", "multigrid")
 
 #: registry-delta ratio at which a rung is escalated one step
 ESCALATE_RATIO = 1.5
+
+#: a program's temporaries above which pair_batch is halved: the
+#: reference's 2 GiB, not measured anew — the port builds pair_batch 1
+#: only (a larger one raises in build_pointing_plan), so on the card
+#: the rule has nothing to halve
+PAIR_TEMP_BUDGET = 2 << 30
 
 def rung_health(records: list, bucket: str = "") -> dict:
     """Fold solver-trace records into per-preconditioner-rung health:
@@ -210,15 +216,54 @@ def choose_solver(state_dir: str, static: dict | None = None,
                        f"trailing-{window}-run registry median "
                        f"(escalation threshold {ESCALATE_RATIO:g})")
 
-    # 3. (the reference halves pair_batch here when a program's
-    # scratch blows the HBM budget; the port has no program records)
+    # 3. program cost model: a shape bucket whose temporaries blow the
+    # budget halves pair_batch for the next solves
+    pair_batch = static.get("pair_batch")
+    if pair_batch and int(pair_batch) > 1:
+        try:
+            from comapreduce_tpu_torch.telemetry.programs import \
+                read_programs
+
+            progs = read_programs(state_dir)
+        except Exception:
+            progs = []
+        worst_rec = None
+        for rec in progs:
+            temp = rec.get("temp_bytes") or 0
+            if temp > PAIR_TEMP_BUDGET and \
+                    (worst_rec is None
+                     or temp > (worst_rec.get("temp_bytes") or 0)):
+                worst_rec = rec
+        if worst_rec is not None:
+            decide("pair_batch", int(pair_batch),
+                   max(int(pair_batch) // 2, 1),
+                   f"program {worst_rec.get('name')!r} bucket "
+                   f"{worst_rec.get('shape_bucket')!r} assigns "
+                   f"{worst_rec.get('temp_bytes')} temp bytes, over "
+                   f"the {PAIR_TEMP_BUDGET} budget")
 
     # 4. mg_block: escalating INTO multigrid with no block configured
-    # gets the documented default so the ladder builds (the reference
-    # consults its [tuning] winners first; tuning/ is not ported)
+    # gets the measured [tuning] winner for this bucket when the cache
+    # holds one, else the documented default so the ladder builds
     if out.get("preconditioner") == "multigrid" \
             and not static.get("mg_block"):
         block, source = 8, "the documented default block of 8"
+        try:
+            from comapreduce_tpu_torch.tuning.cache import TUNING
+            from comapreduce_tpu_torch.tuning.space import solver_bucket
+
+            if TUNING.enabled:
+                win = TUNING.winner(
+                    "solver",
+                    solver_bucket(int(static.get("offset_length")
+                                      or 0)))
+                if win and win.get("mg_block"):
+                    block = int(win["mg_block"])
+                    source = (f"the measured [tuning] winner "
+                              f"(mg_block={block})")
+        except Exception:
+            logger.exception("solver policy: tuning cache consult "
+                             "failed; using the default block")
         decide("mg_block", static.get("mg_block"), block,
                "multigrid selected with no mg_block configured; "
                f"using {source}")

@@ -12,9 +12,9 @@ names cannot drift between entry points:
 - ``spill_dir``: where evicted cache entries are pickled ('' : dropped);
 - ``eager_tod``: a prefetched or cached Level-1 read materialises the
   TOD on the reader's thread (the read being overlapped);
-- ``compile_cache_dir``: the reference's XLA persistent compilation
-  cache. PyTorch has no counterpart: the port's entry points refuse it
-  (``pipeline.runner.unported_knobs``);
+- ``compile_cache_dir``: where the kernel libraries are kept, built or
+  found by a later process (``pipeline.campaign.enable_compile_cache``;
+  the reference's is XLA's persistent compilation cache);
 - ``writeback``: the asynchronous Level-2 checkpoint queue depth
   (``data/writeback.py``); 0 writes synchronously.
 """

@@ -10,10 +10,14 @@ a windowed scatter (``binned_window_sum`` -> kernel K3).
 ``pair_batch`` (merging pair chunks into one binning step) was an MXU
 trade on the TPU; here it is fixed at 1, what the reference's auto rule
 gives off the TPU, until the H100 measures a reason for another value.
+On the auto path a ``[tuning]`` ``plan`` winner is consulted as the
+reference consults it (``pointing_plan.py:290``); a winner other than 1
+(one the reference measured on its MXU) is skipped with a log line.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -28,6 +32,8 @@ from comapreduce_tpu_torch.mapmaking.pixel_space import (PixelSpace,
 # a CPU tensor) lives beside its kernel; it is re-exported here, where the
 # reference defines it
 __all__ = ["PointingPlan", "build_pointing_plan", "binned_window_sum"]
+
+logger = logging.getLogger("comapreduce_tpu_torch")
 
 #: the plan's index arrays, uploaded by :meth:`PointingPlan.device`
 DEVICE_FIELDS = ("sample_perm", "sample_pair", "sample_base", "pair_rank",
@@ -107,6 +113,23 @@ def _window_layout(ids_sorted: np.ndarray, chunk: int, align: int = 128):
     return base.astype(np.int32), int(window)
 
 
+def _consult_plan_winner(n_samples: int, offset_length: int) -> None:
+    """The ``[tuning]`` ``plan`` winner for this ``(N, L)`` bucket: the
+    port builds ``pair_batch`` 1 only, so another winner is logged and
+    skipped (a cache file never makes a plan build raise)."""
+    from comapreduce_tpu_torch.tuning.cache import TUNING
+
+    if not TUNING.enabled:
+        return
+    from comapreduce_tpu_torch.tuning.space import plan_bucket
+
+    win = TUNING.winner("plan", plan_bucket(n_samples, offset_length))
+    if win and win.get("pair_batch") and int(win["pair_batch"]) != 1:
+        logger.warning("[tuning] plan winner pair_batch=%s for bucket "
+                       "N=%d L=%d skipped: the port builds pair_batch 1 "
+                       "only", win["pair_batch"], n_samples, offset_length)
+
+
 def build_pointing_plan(pixels: np.ndarray, npix, offset_length: int,
                         sample_chunk: int = 8192,
                         pair_chunk: int = 4096,
@@ -129,6 +152,8 @@ def build_pointing_plan(pixels: np.ndarray, npix, offset_length: int,
     N = pixels.size
     if N % offset_length:
         raise ValueError(f"N={N} not a multiple of L={offset_length}")
+    if not pair_batch:
+        _consult_plan_winner(N, offset_length)
     n_offsets = N // offset_length
     offs = np.arange(N, dtype=np.int64) // offset_length
     valid = (pixels >= 0) & (pixels < npix)

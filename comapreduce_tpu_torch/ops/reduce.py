@@ -435,13 +435,23 @@ def plan_stage_feed_batch(F: int, B: int, C: int, T: int,
     """Largest feed chunk of a whole-observation stage pass that fits
     the budget (``reduce.py:316``): ``n_arrays`` resident f32[B, C, T]
     arrays per feed plus ``STAGE_CHAIN_BLOCKS`` raw-sized blocks of one
-    feed; ``requested`` > 0 is an upper bound; always >= 1. The
-    reference's ``[tuning]`` winners lookup is not ported (a config that
-    enables ``[tuning]`` is refused by the runner)."""
+    feed; ``requested`` > 0 is an upper bound; always >= 1. On the auto
+    path (``requested`` 0) a measured ``[tuning]`` winner for this
+    ``(F, B, C, T)`` bucket becomes the bound (the fit still caps it)."""
     budget = int((hbm_bytes or device_hbm_bytes()) * headroom)
     unit = B * C * T * 4 * max(int(n_arrays), 1)
     work = STAGE_CHAIN_BLOCKS * B * C * T * 4
     fit = max((budget - work) // max(unit, 1), 1)
+    if not requested:
+        from comapreduce_tpu_torch.tuning.cache import TUNING
+
+        if TUNING.enabled:
+            from comapreduce_tpu_torch.tuning.space import stage_bucket
+
+            win = TUNING.winner("stage",
+                                stage_bucket(F, B, C, T, n_arrays))
+            if win and win.get("feed_batch"):
+                requested = int(win["feed_batch"])
     fb = F if not requested else min(int(requested), F)
     return int(max(min(fb, fit), 1))
 

@@ -43,15 +43,21 @@ brackets the second successfully read file (the first steady one) in
 ``torch.profiler``, its Chrome trace under ``<log_dir>/jax_trace/``;
 ``profile_dir`` traces every ``run_file`` into that directory.
 
-The reference's knobs whose machinery is not ported raise
-``NotImplementedError`` naming the knob, in :meth:`Runner.from_config`
-and in :meth:`Runner.run_tod`: ``[ingest] compile_cache_dir`` (XLA's
-persistent compilation cache), ``[campaign]`` and ``[tuning]``.
-``[control]`` runs: ``admission`` gates the elastic scheduler's claims
-behind the SLO-driven shed/defer loop
-(:class:`~comapreduce_tpu_torch.control.admission.AdmissionController`);
-``autoscale`` and ``solver_policy`` are read by the supervisor sidecar
-and the map-maker's CLI.
+``[campaign]`` pads each observation up to its shape bucket in the
+stages (``ops.reduce.ShapeBuckets``) and, with ``warm_compile`` and
+``[ingest] compile_cache_dir``, builds the stages' kernel libraries on a
+background thread while the first file is read
+(:mod:`~comapreduce_tpu_torch.pipeline.campaign`; the warm-up is kept as
+:attr:`Runner.warmup`). ``compile_cache_dir`` is where the kernel
+libraries are kept. ``[tuning]`` opens the process-wide winners cache
+(:data:`~comapreduce_tpu_torch.tuning.TUNING`) in the state directory,
+which the stages' feed-batch planner consults. ``[control]`` runs:
+``admission`` gates the elastic scheduler's claims behind the SLO-driven
+shed/defer loop (:class:`~comapreduce_tpu_torch.control.admission.
+AdmissionController`); ``autoscale`` and ``solver_policy`` are read by
+the supervisor sidecar and the map-maker's CLI. Every knob of the
+reference runs; an unknown option raises ``ValueError``.
+:meth:`Runner.from_legacy_config` builds a runner from a legacy INI.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from comapreduce_tpu_torch.data.level import COMAPLevel1, COMAPLevel2
 from comapreduce_tpu_torch.ingest.config import IngestConfig
 from comapreduce_tpu_torch.ops.precision import PrecisionPolicy
 from comapreduce_tpu_torch.pipeline import config as cfg_mod
+from comapreduce_tpu_torch.pipeline.campaign import CampaignConfig
 from comapreduce_tpu_torch.pipeline.registry import resolve
 from comapreduce_tpu_torch.pipeline.scheduler import Scheduler
 from comapreduce_tpu_torch.resilience.config import ResilienceConfig
@@ -81,67 +88,34 @@ from comapreduce_tpu_torch.telemetry.core import (TELEMETRY, DeviceTrace,
                                                   StageTimings,
                                                   TelemetryConfig)
 from comapreduce_tpu_torch.telemetry.quality import QualityConfig, SloConfig
+from comapreduce_tpu_torch.tuning.cache import TUNING, TuningConfig
 
 __all__ = ["Runner", "set_logging", "level2_path", "unported_knobs"]
 
 logger = logging.getLogger("comapreduce_tpu_torch")
 
-# each config table with unported options (the reference's KNOBS), and
-# the value the port runs (None: any value); any other value of a known
-# option is unported. [ingest] runs but for compile_cache_dir;
-# [precision], [resilience], [telemetry], [quality], [slo] and
-# [control] are ported: their own coerce() validates them
-_TABLES = {
-    "ingest": {"prefetch": None, "cache_mb": None, "spill_dir": None,
-               "eager_tod": None, "compile_cache_dir": "",
-               "writeback": None},
-    "campaign": {"t_quantum": 0, "scan_quantum": 0, "l_quantum": 0,
-                 "warm_compile": False},
-    "tuning": {"enabled": False, "device_hbm_mb": None,
-               "max_candidates": None, "repeats": None,
-               "min_improvement": None},
-}
-def _ported_value(table: str, key: str, value) -> bool:
-    want = _TABLES[table].get(key, ...)
-    if want is ...:
-        return False
-    if want is None:
-        return True
-    if isinstance(want, bool):
-        return bool(value) is want
-    if isinstance(want, (int, float)):
-        return float(value or 0) == want
-    return str(value or "") == want
+# the config tables whose option names are checked here (the
+# reference's KNOBS; every option of theirs runs); [precision],
+# [resilience], [telemetry], [quality], [slo] and [control] are validated
+# by their own coerce()
+_TABLES = {"ingest": IngestConfig.KNOBS, "campaign": CampaignConfig.KNOBS,
+           "tuning": TuningConfig.KNOBS}
 
 
 def unported_knobs(tables: dict) -> list[str]:
     """Names (``table.option``) of the set config knobs whose machinery
-    the port lacks; ``tables`` maps a table name to its mapping or
-    ``None`` (tables the port runs in full are not judged: only
-    ``[ingest]``'s ``compile_cache_dir``, ``[campaign]`` and
-    ``[tuning]`` are). An option no table knows raises
+    the port lacks: none since ``[campaign]``, ``[tuning]`` and
+    ``[ingest] compile_cache_dir`` were ported. ``tables`` maps a table
+    name to its mapping, config object or ``None``; an option
+    ``[ingest]``, ``[campaign]`` or ``[tuning]`` does not know raises
     ``ValueError``, as the reference's config coercion does."""
-    bad = []
-    for table in _TABLES:
+    for table, knobs in _TABLES.items():
         value = tables.get(table)
-        if value is None:
-            continue
-        if isinstance(value, IngestConfig):
-            value = dataclasses.asdict(value)
-        value = dict(value)
-        unknown = sorted(set(value) - set(_TABLES[table]))
-        if unknown:
-            raise ValueError(f"unknown [{table}] option(s) {unknown}")
-        bad += [f"{table}.{k}" for k, v in value.items()
-                if not _ported_value(table, k, v)]
-    return bad
-
-
-def _refuse(bad: list[str]) -> None:
-    if bad:
-        raise NotImplementedError(
-            "not ported: " + ", ".join(bad) + " (the port runs without "
-            "XLA's compile_cache_dir, [campaign] or [tuning])")
+        if isinstance(value, dict):
+            unknown = sorted(set(value) - set(knobs))
+            if unknown:
+                raise ValueError(f"unknown [{table}] option(s) {unknown}")
+    return []
 
 
 def set_logging(base: str = "pipeline", log_dir: str = ".",
@@ -229,6 +203,9 @@ class Runner:
     tuning: object = None
     # the device the stages compute on (None: the card)
     device: object = None
+    # the last run_tod's campaign warm-up (pipeline.campaign.Warmup;
+    # None: none started)
+    warmup: object = field(default=None, repr=False)
     # cumulative async-writeback stats ({"writes", "write_s",
     # "flush_wait_s", ...}) over this Runner's run_tod calls
     writeback_stats: dict = field(default_factory=dict)
@@ -267,10 +244,15 @@ class Runner:
         each committed through its lease once handled."""
         from comapreduce_tpu_torch.ingest.loaders import level1_stream
 
-        _refuse(unported_knobs(self._tables()))
-        resolve_device(self.device)
+        unported_knobs(self._tables())
+        dev = resolve_device(self.device)
+        for p in self.processes:
+            # before the warm-up: it builds for the stages' device
+            if hasattr(p, "device"):
+                p.device = dev
         os.makedirs(self.output_dir, exist_ok=True)
         cfg = IngestConfig.coerce(self.ingest)
+        camp = CampaignConfig.coerce(self.campaign)
         tcfg = TelemetryConfig.coerce(self.telemetry)
         prec = PrecisionPolicy.coerce(self.precision)
         # [quality]/[slo] validated up front, so a typo'd knob raises at
@@ -278,6 +260,11 @@ class Runner:
         QualityConfig.coerce(self.quality)
         SloConfig.coerce(self.slo)
         ControlConfig.coerce(self.control)
+        tun = TuningConfig.coerce(self.tuning)
+        if tun.enabled and not TUNING.enabled:
+            # process-wide, like the telemetry registry: the first
+            # enabled Runner opens the winners cache
+            TUNING.configure(self.state_dir or self.output_dir, tun)
         if tcfg.enabled and not TELEMETRY.enabled:
             # the registry is process-wide: the first enabled Runner
             # opens this rank's stream; sub-runs (run_astro_cal) and
@@ -285,11 +272,22 @@ class Runner:
             TELEMETRY.configure(self.state_dir or self.output_dir,
                                 rank=self.rank, flush_s=tcfg.flush_s,
                                 jax_profiler=tcfg.jax_profiler)
+        buckets = camp.shape_buckets()
+        if buckets.enabled:
+            # each stage pads an observation up to its campaign bucket
+            for p in self.processes:
+                if hasattr(p, "shape_buckets"):
+                    p.shape_buckets = buckets
         if prec.enabled:
             # the whole policy goes to the stages that carry the knob
             for p in self.processes:
                 if hasattr(p, "precision"):
                     p.precision = prec
+        if cfg.compile_cache_dir:
+            from comapreduce_tpu_torch.pipeline.campaign import \
+                enable_compile_cache
+
+            enable_compile_cache(cfg.compile_cache_dir)
         if self._ingest_cache is None:
             self._ingest_cache = cfg.make_cache()
         cache = self._ingest_cache
@@ -304,6 +302,25 @@ class Runner:
                 "prefetch >= 1 (or cache_mb > 0) to stream narrowed "
                 "TOD.", prec.tod_dtype)
         res = self._resilience_runtime()
+        if camp.warm_compile:
+            # the stages' kernel libraries built on a daemon thread while
+            # the first file is read (runner.py:299)
+            if not cfg.compile_cache_dir:
+                logger.warning(
+                    "campaign warm_compile needs [ingest] "
+                    "compile_cache_dir (the kernel libraries' cache); "
+                    "skipping warm-up")
+            elif not isinstance(filelist, (list, tuple)):
+                logger.warning(
+                    "campaign warm_compile needs a concrete filelist "
+                    "(got a one-shot iterable); skipping warm-up")
+            else:
+                from comapreduce_tpu_torch.pipeline.campaign import \
+                    start_warmup
+
+                self.warmup = start_warmup(
+                    self.processes, self.shard(list(filelist)),
+                    buckets=buckets)
         wb = None
         if cfg.writeback >= 1:
             from comapreduce_tpu_torch.data.writeback import Writeback
@@ -747,13 +764,15 @@ class Runner:
         ``prefix``, ``log_dir`` (the state directory) and ``backend``,
         one table of kwargs per stage, and the ``[resilience]`` (elastic
         claiming on unless ``lease_ttl_s`` is given), ``[quality]`` and
-        ``[slo]`` tables, ``[telemetry]`` and ``[control]``. An unported
-        knob raises ``NotImplementedError``."""
+        ``[slo]`` tables, ``[telemetry]``, ``[control]``, ``[campaign]``
+        and ``[tuning]``. An unknown option raises ``ValueError``."""
         if isinstance(config, str):
             config = cfg_mod.load_toml(config)
         tables = {k: config.get(k) for k in _TABLES}
-        _refuse(unported_knobs(tables))
+        unported_knobs(tables)
         tables["ingest"] = IngestConfig.coerce(tables["ingest"])
+        tables["campaign"] = CampaignConfig.coerce(tables["campaign"])
+        tables["tuning"] = TuningConfig.coerce(tables["tuning"])
         tables["telemetry"] = TelemetryConfig.coerce(config.get("telemetry"))
         tables["precision"] = PrecisionPolicy.coerce(
             config.get("precision"))
@@ -776,3 +795,38 @@ class Runner:
                    slo=SloConfig.coerce(config.get("slo")),
                    control=ControlConfig.coerce(config.get("control")),
                    **tables)
+
+    @classmethod
+    def from_legacy_config(cls, ini_path: str, rank: int = 0,
+                           n_ranks: int = 1, device=None) -> "Runner":
+        """Build from a legacy INI (``runner.py:942``): the
+        ``Module.Class(variant)`` jobs of ``[Inputs] pipeline`` through
+        the registry, ``[Inputs]`` for the directories and the ingest
+        knobs, and the ``[Resilience]`` (elastic claiming on unless
+        ``lease_ttl_s`` is given), ``[Campaign]``, ``[Telemetry]``,
+        ``[Quality]``, ``[Slo]``, ``[Control]`` and ``[Tuning]``
+        sections under the TOML tables' names; a dedicated section
+        rejects an unknown option."""
+        ini = cfg_mod.IniConfig(ini_path)
+        processes = [resolve(name, **kwargs)
+                     for name, kwargs in ini.pipeline_jobs()]
+        inputs = ini.get("Inputs", {})
+        output_dir = inputs.get("output_dir", ".")
+
+        def section(name):
+            return dict(ini.get(name, {})) or None
+
+        return cls(processes=processes, output_dir=output_dir,
+                   state_dir=str(inputs.get("log_dir", "") or
+                                 os.path.join(output_dir, "logs")),
+                   rank=rank, n_ranks=n_ranks, device=device,
+                   ingest=IngestConfig.from_mapping(inputs),
+                   resilience=ResilienceConfig.coerce_campaign(
+                       dict(ini.get("Resilience", {}))),
+                   campaign=CampaignConfig.coerce(
+                       dict(ini.get("Campaign", {}))),
+                   telemetry=TelemetryConfig.coerce(section("Telemetry")),
+                   quality=QualityConfig.coerce(section("Quality")),
+                   slo=SloConfig.coerce(section("Slo")),
+                   control=ControlConfig.coerce(section("Control")),
+                   tuning=TuningConfig.coerce(section("Tuning")))

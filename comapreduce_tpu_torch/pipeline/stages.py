@@ -18,9 +18,20 @@ Every stage of the reference is ported: ``CheckLevel1File``,
 :mod:`~comapreduce_tpu_torch.diagnostics`, matplotlib on the host) and
 ``normalised_mask_db`` (the fleet channel mask of
 :mod:`~comapreduce_tpu_torch.database`). ``backend = "numpy"`` picks
-the f64 host stages of :mod:`~comapreduce_tpu_torch.backends`. The
-reference's ``warm_programs`` (XLA ahead-of-time compiles) has no
-counterpart.
+the f64 host stages of :mod:`~comapreduce_tpu_torch.backends`.
+
+``SkyDip``, ``AtmosphereRemoval``, ``Level1Averaging`` and
+``Level1AveragingGainCorrection`` carry the reference's
+``warm_programs(F, B, C, T, S, L, calibrator)`` hook of the campaign
+warm-up (:mod:`~comapreduce_tpu_torch.pipeline.campaign`): where the
+reference compiles the stage's XLA programs ahead of time, the port
+builds and loads the kernel libraries the stage launches (K1 and K2 for
+the reduction; the other three launch no hand-written kernel), since
+eager PyTorch compiles nothing else. With telemetry on, each of them
+records its device call's program (argument, output and temporary
+bytes) at its first call of a shape bucket
+(:mod:`~comapreduce_tpu_torch.telemetry.programs`), where the reference
+records its warm-up compiles.
 
 Feed batches follow the reference's planner (``ops.reduce``): a stage
 pass keeps its planned chunk of raw counts on the device and works
@@ -39,6 +50,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from comapreduce_tpu_torch import _build
 from comapreduce_tpu_torch._device import resolve_device
 from comapreduce_tpu_torch.data.scan_edges import segment_ids_from_edges
 from comapreduce_tpu_torch.ops import power as power_ops
@@ -58,6 +70,7 @@ from comapreduce_tpu_torch.ops.segment import plan_segments
 from comapreduce_tpu_torch.ops.spikes import spike_mask
 from comapreduce_tpu_torch.ops.stats import auto_rms
 from comapreduce_tpu_torch.pipeline.registry import register
+from comapreduce_tpu_torch.telemetry.programs import PROGRAMS
 
 __all__ = ["CheckLevel1File", "AssignLevel1Data", "UseLevel2Pointing",
            "MeasureSystemTemperature", "SkyDip", "AtmosphereRemoval",
@@ -109,6 +122,19 @@ class _StageBase:
 
     def __str__(self) -> str:
         return self.name
+
+
+class _WarmsLibraries:
+    """The campaign warm-up hook of a stage (``stages.py:442``): build
+    and load the kernel libraries ``kernel_libraries`` the stage
+    launches, on a CUDA device (the CPU runs the plain versions)."""
+
+    kernel_libraries = ()
+
+    def warm_programs(self, F, B, C, T, S, L, calibrator=False):
+        del F, B, C, T, S, L, calibrator   # one library serves any shape
+        if self.kernel_libraries and self._device().type == "cuda":
+            _build.build(self.kernel_libraries)
 
 
 @register(backend="any")
@@ -323,7 +349,7 @@ def mean_vane_tsys_gain(level2):
 
 @register()
 @dataclass
-class SkyDip(_StageBase):
+class SkyDip(_WarmsLibraries, _StageBase):
     """Per-channel linear fit of the TOD against airmass -> ``skydip/fits``
     (F, B, 2, C): [offset, slope per airmass] (``stages.py:356``).
 
@@ -399,9 +425,9 @@ class SkyDip(_StageBase):
             tm = _f32(pad_time_axis(tmask[j].astype(np.float32), Tb,
                                     fill="zero"), dev)
             mask = torch.isfinite(r).to(torch.float32) * tm
-            off, slope = fit_atmosphere_segments(
-                torch.nan_to_num(r), a, seg_t, mask, n_scans=1,
-                plan=plan)
+            off, slope = PROGRAMS.record_call(
+                "skydip.atmosphere_fit", fit_atmosphere_segments,
+                torch.nan_to_num(r), a, seg_t, mask, n_scans=1, plan=plan)
             fits[j] = torch.stack([off[..., 0], slope[..., 0]],
                                   dim=-2).cpu().numpy()
         return fits
@@ -463,7 +489,7 @@ class SkyDip(_StageBase):
 
 @register()
 @dataclass
-class AtmosphereRemoval(_StageBase):
+class AtmosphereRemoval(_WarmsLibraries, _StageBase):
     """Per-(scan, feed, band, channel) regression of the TOD against
     airmass; stores ``atmosphere/fit_values`` (S, F, B, 2, C)
     (``stages.py:522``)."""
@@ -495,7 +521,8 @@ class AtmosphereRemoval(_StageBase):
         for j, r in _feed_tensors(data, F, B, C, Tb, self.feed_batch, dev):
             a = _f32(pad_time_axis(airmass_all[j], Tb, fill="edge"), dev)
             mask = torch.isfinite(r).to(torch.float32)
-            off, atm = fit_atmosphere_segments(
+            off, atm = PROGRAMS.record_call(
+                "atmosphere.scan_fit", fit_atmosphere_segments,
                 torch.nan_to_num(r), a, seg_t, mask, n_scans=Sb, plan=plan)
             # (B, C, Sb) pair -> (Sb, B, 2, C) -> first S scans
             blk = torch.stack([off, atm], dim=0).permute(3, 1, 0, 2)
@@ -507,7 +534,7 @@ class AtmosphereRemoval(_StageBase):
 
 @register()
 @dataclass
-class Level1Averaging(_StageBase):
+class Level1Averaging(_WarmsLibraries, _StageBase):
     """Frequency binning without gain correction (``stages.py:615``):
     counts / vane gain, 1/Tsys^2 weights with the edge and band-centre
     channels cut, then the weighted in-bin mean and standard deviation
@@ -545,8 +572,9 @@ class Level1Averaging(_StageBase):
         for j, r in _feed_tensors(data, F, B, C, Tb, self.feed_batch, dev):
             g = _f32(gain[j], dev)
             tod = r / torch.where(g > 0, g, torch.ones_like(g))[..., None]
-            avg, std = frequency_bin(tod, _f32(w[j], dev), bin_size,
-                                     valid=torch.isfinite(r))
+            avg, std = PROGRAMS.record_call(
+                "level1.frequency_bin", frequency_bin, tod,
+                _f32(w[j], dev), bin_size, valid=torch.isfinite(r))
             tod_out[j] = avg[..., :T].cpu().numpy()
             std_out[j] = std[..., :T].cpu().numpy()
         self._data = {
@@ -560,7 +588,7 @@ class Level1Averaging(_StageBase):
 
 @register()
 @dataclass
-class Level1AveragingGainCorrection(_StageBase):
+class Level1AveragingGainCorrection(_WarmsLibraries, _StageBase):
     """The Level-1 -> Level-2 reduction (``stages.py:701``): feeds in
     batches of ``feed_batch`` through :func:`~..ops.reduce.reduce_feeds`
     (NaN fill, atmosphere subtraction, radiometer normalisation,
@@ -568,6 +596,9 @@ class Level1AveragingGainCorrection(_StageBase):
     average), the next batch read on a worker thread while the device
     reduces the current one. Writes ``averaged_tod/{tod, tod_original,
     weights, scan_edges}``."""
+
+    # K1 (the NaN fill) and K2 (the median filter's rolling medians)
+    kernel_libraries = ("masked_fill", "rolling_median")
 
     groups: tuple = ("averaged_tod",)
     medfilt_window: int = 6000
@@ -650,7 +681,8 @@ class Level1AveragingGainCorrection(_StageBase):
                     fut = ex.submit(load, batches[bi + 1])
                 raw_t = _f32(raw, dev)
                 del raw
-                res = reduce_feeds(
+                res = PROGRAMS.record_call(
+                    "level1.reduce_feeds", reduce_feeds,
                     raw_t, _f32(am, dev), starts, lengths,
                     _f32(tsys[idx], dev), _f32(sys_gain[idx], dev),
                     freq_scaled, cfg, L=L,

@@ -43,11 +43,14 @@ The device-trace knob keeps the reference's name, ``jax_profiler``, so
 shipped and user configs run unchanged: :meth:`Telemetry.
 maybe_jax_profile` brackets exactly one steady-state file per configure
 in ``torch.profiler.profile`` (CPU and, with a card, CUDA activities)
-and writes its Chrome trace under ``<log_dir>/jax_trace/``. What has no
-counterpart: the reference's ``jax.compile`` spans and compile-cache
-counters (``jax.monitoring`` events of XLA compilation; eager PyTorch
-compiles no programs) and the compiled-program registry
-(``telemetry/programs.py``) that rides the same switch there.
+and writes its Chrome trace under ``<log_dir>/jax_trace/``. What the
+port compiles is its kernel libraries (``pipeline.campaign``): each
+``nvcc`` build is a ``jax.compile`` span and counts
+``jax.compile_cache.misses``, a library found on disk counts
+``jax.compile_cache.hits``, under the reference's names. The program
+registry (:mod:`~comapreduce_tpu_torch.telemetry.programs`, one eager
+call measured per stage program and shape bucket) rides the same switch,
+as there.
 """
 
 from __future__ import annotations
@@ -241,6 +244,13 @@ class Telemetry:
                                         name="telemetry-flush",
                                         daemon=True)
         self._thread.start()
+        # kernel-library builds become spans and counters
+        from comapreduce_tpu_torch import _build
+        from comapreduce_tpu_torch.telemetry.programs import PROGRAMS
+
+        _build.add_listener(_on_library_event)
+        # the program registry rides the same switch (core.py:243)
+        PROGRAMS.configure(log_dir, rank)
         return self
 
     def close(self) -> None:
@@ -255,6 +265,9 @@ class Telemetry:
             self.flush()
         self._enabled = False
         self._gauges.clear()
+        from comapreduce_tpu_torch.telemetry.programs import PROGRAMS
+
+        PROGRAMS.close()
 
     # -- emission ----------------------------------------------------------
     def _stack(self) -> list:
@@ -396,6 +409,18 @@ class Telemetry:
 
 
 TELEMETRY = Telemetry()
+
+
+def _on_library_event(event: str, name: str, seconds: float) -> None:
+    """A kernel-library build (``_build``) as the reference reports an XLA
+    compile: a ``jax.compile`` span and a cache miss, which a steady
+    campaign segment shows none of; a library found on disk a cache
+    hit."""
+    if event == "build":
+        TELEMETRY.counter("jax.compile_cache.misses")
+        TELEMETRY.event_span("jax.compile", seconds, library=name)
+    else:
+        TELEMETRY.counter("jax.compile_cache.hits")
 atexit.register(TELEMETRY.close)
 
 

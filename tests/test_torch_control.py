@@ -16,9 +16,8 @@ as to the reference test's own assertions:
   scheduler shedding ``deferred`` and re-admitting, the uncontrolled
   schedule when off) and ``Runner``'s ``[control]``;
 - ``choose_solver`` (no evidence, the cheapest healthy rung, off a sick
-  rung, the registry delta). The port has no program cost model
-  (``telemetry/programs`` is not ported): where the reference halves
-  ``pair_batch`` on a ``programs.jsonl`` record, the port keeps it;
+  rung, the registry delta, and the program cost model: a
+  ``programs.jsonl`` record over budget halves ``pair_batch`` in both);
 - ``RankManager`` over real child processes;
 - the supervisor over real ranks on the control drill's smallest
   campaign (two workers it spawns drain four units), in both packages;
@@ -512,9 +511,10 @@ def test_choose_solver_like_the_reference(tmp_path, case):
 
 
 def test_choose_solver_reads_no_program_cost_model(tmp_path):
-    """The reference halves ``pair_batch`` on a ``programs.jsonl`` record
-    over its budget; the port has no program records
-    (``telemetry/programs`` is not ported) and keeps it."""
+    """A ``programs.jsonl`` record over the temp budget halves
+    ``pair_batch`` in both packages. (Until ``telemetry/programs`` was
+    ported the port read no program records and kept it; the name is
+    kept.)"""
     _write_trace(tmp_path, _solves("jacobi", 2, 10))
     with open(tmp_path / "programs.jsonl", "w", encoding="utf-8") as f:
         f.write(json.dumps({"schema": 1, "kind": "program",
@@ -527,7 +527,7 @@ def test_choose_solver_reads_no_program_cost_model(tmp_path):
     port = PORT.policy.choose_solver(str(tmp_path), static=static,
                                      record=False)
     assert ref["pair_batch"] == 4
-    assert port == {"reasons": []}
+    assert port == ref
 
 
 # -- the rank manager -------------------------------------------------------

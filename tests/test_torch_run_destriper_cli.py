@@ -262,31 +262,43 @@ UNPORTED = {
 
 
 # the knobs of UNPORTED that the ingest tier, bf16 streaming, the
-# telemetry plane and the control plane now run
+# telemetry plane, the control plane and the campaign layer now run
 RUNS = ("[Inputs] prefetch", "[Inputs] cache_mb", "[Inputs] writeback",
-        "tod_dtype = bf16", "--live-port", "[Telemetry] enabled",
-        "[Control] solver_policy")
+        "[Inputs] compile_cache_dir", "tod_dtype = bf16", "--live-port",
+        "[Telemetry] enabled", "[Control] solver_policy",
+        "[Tuning] enabled")
 
 
 @pytest.mark.parametrize("knob", list(UNPORTED))
 def test_main_refuses_unported_knobs(l2files, tmp_path, monkeypatch, knob,
                                      capsys):
     """Each knob whose machinery is not ported raises naming itself
-    (``compile_cache_dir`` naming XLA) before any map is written. The
-    knobs of ``RUNS`` were refused until the ingest tier (and, for
-    ``--live-port`` and ``[Telemetry]``, the telemetry plane, for
-    ``[Control]`` the control plane) was ported; each now runs ``main``
-    in both packages, the port's maps held
-    to the reference's as ``test_main_matches_reference`` holds them
-    (bf16: the same narrowed bits in both), each package's telemetry
-    stream closed after."""
+    before any map is written. The knobs of ``RUNS`` were refused until
+    the ingest tier (and, for ``--live-port`` and ``[Telemetry]``, the
+    telemetry plane, for ``[Control]`` the control plane, for
+    ``compile_cache_dir`` and ``[Tuning]`` the campaign layer) was
+    ported; each now runs ``main`` in both packages, the port's maps
+    held to the reference's as ``test_main_matches_reference`` holds
+    them (bf16: the same narrowed bits in both), each package's
+    telemetry stream and winners cache closed after.
+    ``compile_cache_dir`` points the port's kernel libraries at a
+    temporary directory (restored after); the reference runs that case
+    without it, since its JAX persistent cache would stay on for the
+    rest of the test process."""
+    from comapreduce_tpu_torch import _build
+    from comapreduce_tpu_torch.pipeline import campaign
+
     _, _, filelist = l2files
     spec = UNPORTED[knob]
     res = spec.get("resilience", "quarantine : off\nlease_ttl_s : 0")
     if knob in RUNS:
         for pkg in ("port", "ref"):
+            inputs = spec.get("inputs", "")
+            if knob == "[Inputs] compile_cache_dir":
+                inputs = (f"compile_cache_dir : {tmp_path / 'cc'}"
+                          if pkg == "port" else "")
             ini = _write_ini(tmp_path / f"{pkg}.ini", filelist,
-                             str(tmp_path / pkg), spec.get("inputs", ""),
+                             str(tmp_path / pkg), inputs,
                              spec.get("sections", ""), resilience=res)
             argv = [ini] + spec.get("argv", [])
             try:
@@ -294,10 +306,16 @@ def test_main_refuses_unported_knobs(l2files, tmp_path, monkeypatch, knob,
                         if pkg == "port" else ref_rd.main(argv)) == 0
             finally:
                 from comapreduce_tpu.telemetry import TELEMETRY as ref_t
+                from comapreduce_tpu.tuning import TUNING as ref_tuning
                 from comapreduce_tpu_torch.telemetry import TELEMETRY
+                from comapreduce_tpu_torch.tuning import TUNING
 
                 TELEMETRY.close()
                 ref_t.close()
+                TUNING.close()
+                ref_tuning.close()
+                _build.set_build_dir(None)
+                campaign._CACHE_DIR_ENABLED = None
         assert capsys.readouterr().out.count(" CG iters, residual ") == 4
         for band in (0, 1):
             name = f"co2_band{band}.fits"
@@ -312,8 +330,6 @@ def test_main_refuses_unported_knobs(l2files, tmp_path, monkeypatch, knob,
     with pytest.raises(NotImplementedError) as err:
         port_rd.main([ini, "--device=cpu"] + spec.get("argv", []))
     assert knob in str(err.value)
-    if "compile_cache_dir" in knob:
-        assert "XLA" in str(err.value)
     assert not os.path.exists(tmp_path / "out" / "co2_band0.fits")
 
 

@@ -66,7 +66,6 @@ from comapreduce_tpu_torch.data.hdf5io import HDF5Store
 from comapreduce_tpu_torch.pipeline import Runner
 from comapreduce_tpu_torch.pipeline.runner import (level2_path, set_logging,
                                                    unported_knobs)
-from comapreduce_tpu_torch.pipeline.stages import CheckLevel1File
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -246,13 +245,17 @@ UNPORTED = [
 ]
 
 
-# the knobs of UNPORTED that the ingest tier, bf16 streaming, the
-# telemetry plane and the control plane now run; bf16 narrows only in
-# the eager loader, so its case reads ahead
+# what each knob of UNPORTED adds to the config now that the ingest
+# tier, bf16 streaming, the telemetry plane, the control plane and the
+# campaign layer run it; bf16 narrows only in the eager loader, so its
+# case reads ahead
 RUNS = {"ingest.prefetch": {}, "ingest.cache_mb": {},
-        "ingest.writeback": {}, "precision.cg_dot": {},
+        "ingest.writeback": {}, "ingest.compile_cache_dir": {},
+        "campaign.t_quantum": {}, "campaign.warm_compile": {},
+        "precision.cg_dot": {},
         "precision.tod_dtype": {"ingest": {"prefetch": 1}},
-        "telemetry.enabled": {}, "control.admission": {}}
+        "telemetry.enabled": {}, "control.admission": {},
+        "tuning.enabled": {}}
 
 
 @pytest.mark.parametrize("table,value,knob", UNPORTED,
@@ -260,54 +263,57 @@ RUNS = {"ingest.prefetch": {}, "ingest.cache_mb": {},
 def test_unported_knob_raises_at_from_config_and_run_tod(table, value,
                                                          knob, obs,
                                                          tmp_path):
-    """Each knob whose machinery is not ported raises naming itself, at
-    ``from_config`` and at ``run_tod`` (``compile_cache_dir`` naming
-    XLA, whose cache it is). The knobs of ``RUNS`` were refused until
-    the ingest tier (and, for ``[telemetry]`` and ``[control]``, the
-    telemetry and control planes) was ported; each now runs the shipped
-    chain over one observation in both
-    packages, the port's Level-2 file held to the reference's by
-    ``check_level2`` (each package's telemetry stream closed after)."""
-    cfg = shipped_chain_config()
-    cfg[table] = dict(value)
-    if knob in RUNS:
-        _, files, filelist, _ = obs
-        paths = {}
-        for name, cls, kw in (("port", Runner, {"device": "cpu"}),
-                              ("ref", RefRunner, {})):
-            run_cfg = _config(tmp_path, name, filelist)
-            run_cfg[table] = dict(value)
-            run_cfg.update(copy.deepcopy(RUNS[knob]))
-            runner = cls.from_config(run_cfg, **kw)
-            try:
-                (lvl2,) = runner.run_tod(files[:1])
-            finally:
-                from comapreduce_tpu.telemetry import TELEMETRY as ref_t
-                from comapreduce_tpu_torch.telemetry import TELEMETRY
+    """Each of these knobs was refused, naming itself, until its
+    machinery was ported (the ingest tier; the telemetry, control and
+    campaign layers); all of ``RUNS`` now run the shipped chain over one
+    observation in both packages, the port's Level-2 file held to the
+    reference's by ``check_level2`` (each package's telemetry stream
+    and winners cache closed after). ``compile_cache_dir`` points the
+    port's kernel libraries at a temporary directory (restored after);
+    the reference runs that case without it, since its JAX persistent
+    cache would stay on for the rest of the test process."""
+    from comapreduce_tpu_torch import _build
+    from comapreduce_tpu_torch.pipeline import campaign
 
-                TELEMETRY.close()
-                ref_t.close()
-            paths[name] = lvl2.filename
-            if table == "ingest" and "writeback" in value:
-                assert runner.writeback_stats["writes"] >= 7
-        # the narrowed TOD is the same bits in both packages; its noise
-        # fits, degenerate on this white TOD, are held through the
-        # reference's loss as the drill's are (measured on the CPU: the
-        # white fit of one scan 1.27 standard errors from the
-        # reference's, at no worse a log-chi^2)
-        check_level2(HDF5Store().read(paths["port"]),
-                     RefStore().read(paths["ref"]), paths["port"],
-                     fit_loss=_ref_fit_losses)
-        return
-    with pytest.raises(NotImplementedError,
-                       match=knob.replace(".", r"\.")) as err:
-        Runner.from_config(cfg, device="cpu")
+    _, files, filelist, _ = obs
+    paths = {}
+    for name, cls, kw in (("port", Runner, {"device": "cpu"}),
+                          ("ref", RefRunner, {})):
+        run_cfg = _config(tmp_path, name, filelist)
+        run_cfg[table] = dict(value)
+        if knob == "ingest.compile_cache_dir":
+            run_cfg[table] = ({"compile_cache_dir": str(tmp_path / "cc")}
+                              if name == "port" else {})
+        run_cfg.update(copy.deepcopy(RUNS[knob]))
+        runner = cls.from_config(run_cfg, **kw)
+        try:
+            (lvl2,) = runner.run_tod(files[:1])
+        finally:
+            from comapreduce_tpu.telemetry import TELEMETRY as ref_t
+            from comapreduce_tpu.tuning import TUNING as ref_tuning
+            from comapreduce_tpu_torch.telemetry import TELEMETRY
+            from comapreduce_tpu_torch.tuning import TUNING
+
+            TELEMETRY.close()
+            ref_t.close()
+            TUNING.close()
+            ref_tuning.close()
+            _build.set_build_dir(None)
+            campaign._CACHE_DIR_ENABLED = None
+        paths[name] = lvl2.filename
+        if table == "ingest" and "writeback" in value:
+            assert runner.writeback_stats["writes"] >= 7
+    # the narrowed TOD is the same bits in both packages; its noise
+    # fits, degenerate on this white TOD, are held through the
+    # reference's loss as the drill's are (measured on the CPU: the
+    # white fit of one scan 1.27 standard errors from the
+    # reference's, at no worse a log-chi^2)
+    check_level2(HDF5Store().read(paths["port"]),
+                 RefStore().read(paths["ref"]), paths["port"],
+                 fit_loss=_ref_fit_losses)
     if knob == "ingest.compile_cache_dir":
-        assert "XLA" in str(err.value)
-    runner = Runner(processes=[CheckLevel1File()], device="cpu",
-                    **{table: value})
-    with pytest.raises(NotImplementedError, match=knob.replace(".", r"\.")):
-        runner.run_tod([])
+        # the CPU builds nothing: the cache directory stays empty
+        assert os.listdir(tmp_path / "cc") == []
 
 
 # [resilience], [quality] and [slo]: ported, validated by their own
