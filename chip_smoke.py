@@ -17,15 +17,19 @@ Phases, in order; any failure exits non-zero and no result is printed:
    plan (one band), K4 with the ground solve's two coefficient rows
    (R = 2) and with one (R = 1), K3 at the polarized solve's new sites
    on the field plan (the stacked pair sum at R = 10, the rank sums at
-   R = 7 and R = 3), and K3 once more with its ids shuffled
-   inside each chunk — (K1, K2 and K4 bitwise; K3 bitwise on
+   R = 7 and R = 3), both of K3's bodies at every site (the one-pass
+   body, which the main path takes on the plans' ascending ids, and the
+   two-pass body), and the two-pass body once more with its ids
+   shuffled inside each chunk — (K1, K2 and K4 bitwise; K3 bitwise on
    integer-valued sums and, on real values, within the f32 summation
    bound of the exact sum, and three launches on the same inputs the
    same bits), each timed on the device with CUDA events
    (``cuda_ms``) beside its plain version, its bound and the one PyTorch
    call that computes the same function where there is one
-   (``torch.quantile`` on an unfold view for K2, ``index_add_`` for K3,
-   ``index_select`` for K4), with the launch floor (a one-element
+   (``torch.quantile`` on an unfold view for K2, ``index_add_`` and, a
+   fixed-order yardstick, ``segment_reduce`` for K3, K3's bodies and
+   these two timed in turns; ``index_select`` for K4), with the launch
+   floor (a one-element
    ``zero_``) beside K2's and K4's bounds, K2 at four block sizes and K4
    also as the two R = 1 launches one matvec took before; K1 on rows at
    the edges of its selection (``fill_edge_rows``), K2 on tied, -0/+0
@@ -33,7 +37,9 @@ Phases, in order; any failure exits non-zero and no result is printed:
    scalar body (``gather_lane_case``), with each kernel's resident
    blocks per SM; then what the main path's shapes do not take: K1's
    second body (keys in device scratch), K2's (window 20 000) and K3 on
-   a layout that stresses its one body (``window_sum_stress_case``);
+   a layout that stresses both bodies (``window_sum_stress_case``: the
+   two-pass body with ids shuffled in a chunk, the one-pass body with
+   them sorted back);
 4. small-shape chain: the BENCH_SMALL observation through the port on
    the card and, with the same inputs, on the CPU (plain versions);
 5. full-width chain: F=19 feeds x B=4 bands x C=1024 channels x 10 CES
@@ -43,8 +49,8 @@ Phases, in order; any failure exits non-zero and no result is printed:
    per scan batch of each feed: 95);
 6. profile: one more full-width run under ``torch.profiler`` (the
    device's activity only) for the device time per kernel (K1, K2 and
-   K3 per launch and as a share of device time) and the device's busy
-   share;
+   K3 per launch and as a share of device time; K3 is one kernel a
+   launch, ``K3_SYMBOL``) and the device's busy share;
 7. field run (``comapreduce_tpu_torch/fieldrun.py``): the band solve
    ``cli.run_destriper.solve_band`` with the ground template and the
    two-level preconditioner (block 8), 100 iterations, threshold 1e-6 —
@@ -318,14 +324,21 @@ Phases, in order; any failure exits non-zero and no result is printed:
    round trip within ``ROUND_TRIP_ARCSEC``, native against the NumPy
    oracle on one feed within ``NATIVE_ARCSEC``; the walls of each.
 
-The last lines are the ``kernels`` JSON line, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. A longer report goes to
+Every phase's wall is logged (``wall <phase> <s>``) beside the calls
+each K3 body took in it (``k3_bodies``): a phase in which the two-pass
+body ran outside the script's own checks fails, and so does a phase that
+solves (``K3_SOLVING_LAPS``) without the one-pass body.
+
+The last lines are the ``kernels`` JSON line (K3's entry lists both
+bodies), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``. A longer report goes to
 ``chiprun_out/chip_smoke_report.json``. The script imports nothing of
 JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -370,6 +383,12 @@ FIELD_ATOL = 5e-4
 # phase D's checkpointed solve: iterations a chunk (each chunk rebuilds
 # the multigrid hierarchy on the host; the solve takes about 60)
 CHECKPOINT_EVERY = 50
+# the laps in which the main path solves with K3 (``main`` fails one in
+# which K3's one-pass body never ran)
+K3_SOLVING_LAPS = ("full_chain_and_profile", "field_7", "field_A",
+                   "field_B_D", "reader_F", "calibration_H", "ingest_I",
+                   "serving_K", "observability_M", "pol_tuning_N",
+                   "sharded_O", "synthetic_L")
 # the longest window K2 serves: its bisection body's 128-output block
 # stages 128 + w - 1 i32 keys in the 232 448 bytes of shared memory an
 # H100 block may use
@@ -442,16 +461,19 @@ def bits_equal(a, b) -> bool:
                             b[~nb].view(torch.int32)))
 
 
-def check_window_sum(label, vals, ids, base, window, chunk, out_size):
-    """Hold K3 against its plain version on the card in the two ways no
-    order of f32 adds can blur, and against itself over three launches;
-    return max |kernel - plain| and the most terms any bin sums.
+def check_window_sum(label, vals, ids, base, window, chunk, out_size,
+                     ids_sorted: bool = False):
+    """Hold a K3 body (the one-pass body where ``ids_sorted``, else the
+    two-pass body) against its plain version on the card in the two ways
+    no order of f32 adds can blur, and against itself over three
+    launches; return max |kernel - plain| and the most terms any bin sums.
 
-    The kernel adds in its own fixed order (per chunk, then chunks in
-    order) and the plain version in ``index_add_``'s (atomics on the
-    card), so they differ in the last bits, and more so in a bin of many
-    terms (the plan's padding samples all land on one padded pair): no
-    fixed share of the output's scale bounds that. Instead:
+    The kernel adds in its own fixed order (the one-pass body: runs in
+    tile order; the two-pass body: per chunk, then chunks in order) and
+    the plain version in ``index_add_``'s (atomics on the card), so they
+    differ in the last bits, and more so in a bin of many terms (the
+    plan's padding samples all land on one padded pair): no fixed share
+    of the output's scale bounds that. Instead:
 
     - routing, exactly: with integer values of magnitude at most k, where
       k * (the most terms any bin sums) < 2**24 (k = 2 where that allows),
@@ -473,6 +495,7 @@ def check_window_sum(label, vals, ids, base, window, chunk, out_size):
 
     M = vals.shape[-1]
     args = (ids, base, window, chunk, out_size)
+    kw = {"ids_sorted": ids_sorted}
     n = binned_window_sum_plain(
         torch.ones((1, M), dtype=torch.float64, device=vals.device),
         *args)[0]
@@ -484,13 +507,13 @@ def check_window_sum(label, vals, ids, base, window, chunk, out_size):
     g.manual_seed(17)
     ints = torch.randint(-k, k + 1, tuple(vals.shape), generator=g,
                          device=vals.device).float()
-    if not torch.equal(binned_window_sum(ints, *args),
+    if not torch.equal(binned_window_sum(ints, *args, **kw),
                        binned_window_sum_plain(ints, *args)):
         raise SystemExit(f"K3 {label}: integer-valued sums differ from "
                          "the plain version")
-    got = binned_window_sum(vals, *args)
+    got = binned_window_sum(vals, *args, **kw)
     for i in (2, 3):
-        if not bits_equal(binned_window_sum(vals, *args), got):
+        if not bits_equal(binned_window_sum(vals, *args, **kw), got):
             raise SystemExit(f"K3 {label}: launch {i} on the same inputs "
                              "gave other bits than launch 1")
     want = binned_window_sum_plain(vals, *args)
@@ -506,15 +529,37 @@ def check_window_sum(label, vals, ids, base, window, chunk, out_size):
     return float((got - want).abs().max()), int(n.max())
 
 
-def window_sum_stress_case(seed: int = 21):
-    """A K3 layout that stresses its one body (numpy; R = 4 values go
+#: two-pass K3 launches made by this script's own checks and timings
+#: (:func:`k3_two_pass_checks`), not by the main path
+K3_CHECK_TWO_PASS = [0]
+
+
+@contextlib.contextmanager
+def k3_two_pass_checks():
+    """Inside the block, count K3's two-pass launches as this script's
+    checks: ``main`` fails a phase in which the two-pass body ran
+    otherwise (every K3 call of the main path takes the one-pass body)."""
+    from comapreduce_tpu_torch.mapmaking.cuda_binning import \
+        binned_window_sum
+
+    n0 = binned_window_sum.bodies["two_pass"]
+    try:
+        yield
+    finally:
+        K3_CHECK_TWO_PASS[0] += binned_window_sum.bodies["two_pass"] - n0
+
+
+def window_sum_stress_case(seed: int = 21, sorted_ids: bool = False):
+    """A K3 layout that stresses both bodies (numpy; R = 4 values go
     with it): ``(ids, base, window, chunk, out_size)`` over 64 chunks of
     8192 sorted ids in [0, 2**21), so the window is wider than 32 768,
     with a run of 5000 equal ids across a chunk boundary and a run of 3000
-    inside a chunk (both longer than a warp's 256 and a block's 1024
-    elements, and across their boundaries), 1000 shuffled ids, a window
-    start clipped at 0, one raised past its chunk's first ids, one clipped
-    at ``out_size`` and a last chunk of sentinel ids."""
+    inside a chunk (both longer than a warp's 256 elements and the
+    one-pass body's 2 048-element tile, and across their boundaries),
+    1000 shuffled ids, a window start clipped at 0, one raised past its
+    chunk's first ids, one clipped at ``out_size`` and a last chunk of
+    sentinel ids. ``sorted_ids``: chunk 40's shuffled ids sorted back, so
+    the ids ascend over the whole array (the one-pass body's contract)."""
     rng = np.random.default_rng(seed)
     chunk, n_chunks, out_size = 8192, 64, 1 << 21
     ids = np.sort(rng.integers(0, out_size, chunk * n_chunks))
@@ -524,6 +569,8 @@ def window_sum_stress_case(seed: int = 21):
     ids[b:b + 3000] = ids[b]
     c = 40 * chunk + 100
     ids[c:c + 1000] = rng.permutation(ids[c:c + 1000])
+    if sorted_ids:
+        ids[c:c + 1000] = np.sort(ids[c:c + 1000])
     ids[-chunk:] = out_size + 3
     blocks = ids.reshape(n_chunks, chunk)
     base = blocks.min(axis=1)
@@ -655,15 +702,19 @@ def _k3_layouts(plan, dev):
 
 def k3_sites(plan, R: int, g, prefix: str = "", only=None) -> dict:
     """K3 at the planned destriper's three call sites of ``plan`` (those
-    named in ``only``, default all) with
-    ``R`` right-hand sides of random values: each held to its plain
-    version and to itself over three launches (``check_window_sum``) and
-    timed beside it, its bound and ``index_add_`` into a staging column
-    on ids pre-masked to the plan's windows (the one PyTorch call
-    computing the same function). ``bound_ms`` counts the bytes the
-    function must move; ``partial_bound_ms`` adds the kernel's partial
-    buffer (R x n_chunks x window f32, written by its first pass and
-    read by its second)."""
+    named in ``only``, default all) with ``R`` right-hand sides of random
+    values: both bodies held to the plain version and to themselves over
+    three launches (``check_window_sum``), then timed in turns on the same
+    inputs (one-pass, two-pass, ``index_add_``, ``segment_reduce``, and
+    back; each figure the mean of its two turns) beside the plain version
+    and the bound. ``index_add_`` adds into a staging column on ids
+    pre-masked to the plan's windows; ``segment_reduce`` sums the values
+    by each bin's run length, made outside the timing (a fixed-order
+    PyTorch call: a plan's kept ids ascend and its sentinels come last,
+    so each bin's terms are one run). ``bound_ms`` counts the bytes the
+    function must move (the one-pass body's); ``partial_bound_ms`` adds
+    the two-pass body's partial buffer (R x n_chunks x window f32,
+    written by its first pass and read by its second)."""
     import torch
 
     from comapreduce_tpu_torch.mapmaking.cuda_binning import (
@@ -678,25 +729,40 @@ def k3_sites(plan, R: int, g, prefix: str = "", only=None) -> dict:
         site = prefix + site
         vals = torch.randn((R, M), generator=g, device=dev)
         err, n_max = check_window_sum(site, vals, ids, base, window,
-                                      chunk, out_size)
+                                      chunk, out_size, ids_sorted=True)
+        with k3_two_pass_checks():
+            err2, _ = check_window_sum(site + " (two-pass)", vals, ids,
+                                       base, window, chunk, out_size)
         dest = _window_dest(ids, base, window, chunk, out_size)
         n_valid = int((dest < out_size).sum())
         stage = torch.zeros((R, out_size + 1), device=dev)
+        lens = torch.bincount(dest, minlength=out_size + 1).expand(
+            R, -1).contiguous()
+        args = (vals, ids, base, window, chunk, out_size)
+        timers = [
+            ("ms", lambda: binned_window_sum(*args, ids_sorted=True)),
+            ("two_pass_ms", lambda: binned_window_sum(*args)),
+            ("library_ms", lambda: stage.index_add_(1, dest, vals)),
+            ("segment_reduce_ms", lambda: torch.segment_reduce(
+                vals, "sum", lengths=lens, axis=1, unsafe=True))]
+        turns = {name: [] for name, _ in timers}
+        with k3_two_pass_checks():
+            for name, fn in timers + timers[::-1]:
+                turns[name].append(cuda_ms(fn, reps=20))
         sites[site] = dict(
             R=R, M=M, out_size=out_size, window=window, chunk=chunk,
-            max_abs_err=err, max_terms_per_bin=n_max,
-            ms=cuda_ms(lambda: binned_window_sum(
-                vals, ids, base, window, chunk, out_size), reps=20),
-            plain_ms=cuda_ms(lambda: binned_window_sum_plain(
-                vals, ids, base, window, chunk, out_size), reps=5),
-            library_ms=cuda_ms(lambda: stage.index_add_(1, dest, vals),
-                               reps=20))
+            max_abs_err=err, two_pass_max_abs_err=err2,
+            max_terms_per_bin=n_max, turns_ms=turns,
+            plain_ms=cuda_ms(lambda: binned_window_sum_plain(*args),
+                             reps=5))
+        sites[site].update({name: statistics.mean(t)
+                            for name, t in turns.items()})
         n_bytes = (R * M + M + M // chunk + R * out_size) * 4
         sites[site]["bound_ms"], sites[site]["bound_by"] = bound(
             n_bytes, R * n_valid)
         sites[site]["partial_bound_ms"] = bound(
             n_bytes + 2 * R * (M // chunk) * window * 4, R * n_valid)[0]
-        del vals, dest, stage
+        del vals, dest, stage, lens
     return sites
 
 
@@ -988,39 +1054,55 @@ def phase_kernel_parity(plan, full, field_plan):
                             ("pol7_", 7, "rank_sum"),
                             ("pol3_", 3, "rank_sum")):
         sites.update(k3_sites(field_plan, R, g, prefix, only=(site,)))
-    # the contract holds for ids in any order inside a chunk: the
-    # flagship's pair sum with its ids (and values) shuffled per chunk
+    # the two-pass body's contract holds for ids in any order inside a
+    # chunk: the flagship's pair sum with its ids (and values) shuffled
+    # per chunk
     ids, base, window, chunk, out_size, M = _k3_layouts(
         plan, dev)["pair_sum"]
     perm = (torch.argsort(torch.rand((M // chunk, chunk), generator=g,
                                      device=dev), dim=1)
             + torch.arange(0, M, chunk, device=dev)[:, None]).reshape(-1)
     vals = torch.randn((B, M), generator=g, device=dev)
-    err, n_max = check_window_sum("shuffled pair_sum", vals[:, perm],
-                                  ids[perm].contiguous(), base, window,
-                                  chunk, out_size)
-    sites["pair_sum_shuffled"] = dict(
-        R=B, M=M, out_size=out_size, window=window, chunk=chunk,
-        max_abs_err=err, max_terms_per_bin=n_max,
-        ms=cuda_ms(lambda: binned_window_sum(
-            vals[:, perm].contiguous(), ids[perm].contiguous(), base,
-            window, chunk, out_size), reps=10))
+    with k3_two_pass_checks():
+        err, n_max = check_window_sum("shuffled pair_sum", vals[:, perm],
+                                      ids[perm].contiguous(), base, window,
+                                      chunk, out_size)
+        sites["pair_sum_shuffled"] = dict(
+            R=B, M=M, out_size=out_size, window=window, chunk=chunk,
+            two_pass_max_abs_err=err, max_terms_per_bin=n_max,
+            two_pass_ms=cuda_ms(lambda: binned_window_sum(
+                vals[:, perm].contiguous(), ids[perm].contiguous(), base,
+                window, chunk, out_size), reps=10))
     del vals, perm
+    plan_sites = [v for k, v in sites.items() if k != "pair_sum_shuffled"]
     head = sites["rank_sum"]
+    one_blocks, tile = binned_window_sum_occupancy(B, ids_sorted=True)
+    two_blocks, per_pass = binned_window_sum_occupancy(B, plan.rank_window)
     entries["binned_window_sum"] = dict(
         name="binned_window_sum", route="cuda",
         source="comapreduce_tpu_torch/csrc/binned_window_sum.cu",
         replaces="comapreduce_tpu/mapmaking/pallas_binning.py:204",
-        max_abs_err=max(s["max_abs_err"] for s in sites.values()),
+        max_abs_err=max(s["max_abs_err"] for s in plan_sites),
         ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-        library_ms=head["library_ms"], headline_site="rank_sum",
+        library_ms=head["library_ms"],
+        segment_reduce_ms=head["segment_reduce_ms"],
+        headline_site="rank_sum",
+        # both bodies, each held to the plain version at every site (the
+        # two-pass body also on the shuffled ids); ``launches`` is filled
+        # in from the main path's run
+        bodies=[
+            {"body": "one_pass", "max_abs_err": max(
+                s["max_abs_err"] for s in plan_sites),
+             "ms": head["ms"], "bound_ms": head["bound_ms"],
+             "blocks_per_sm": one_blocks, "tile_elements": tile},
+            {"body": "two_pass", "max_abs_err": max(
+                s["two_pass_max_abs_err"] for s in sites.values()),
+             "ms": head["two_pass_ms"],
+             "bound_ms": head["partial_bound_ms"],
+             "blocks_per_sm": two_blocks, "elements_per_pass": per_pass}],
+        blocks_per_sm=one_blocks, tile_elements=tile,
         sites=sites)
-    entries["binned_window_sum"]["partial_bound_ms"] = \
-        head["partial_bound_ms"]
-    (entries["binned_window_sum"]["blocks_per_sm"],
-     entries["binned_window_sum"]["elements_per_pass"]) = \
-        binned_window_sum_occupancy(B, plan.rank_window)
     # K4 at its one call site, the ground solve's offset-order gather of
     # its two per-offset coefficient rows c0, c1 in one launch (R = 2,
     # S = n_off, M = P_pad) on the full field plan; beside it one row
@@ -1042,9 +1124,10 @@ def phase_large_paths():
     """What the main path's shapes never take, each against its plain
     version: K1's second body, its keys in device scratch and its row read
     twice (L = 300 000 and 300 001, the float4 and the scalar loads),
-    bitwise (every row takes the stride-4 median); K3's one body on
+    bitwise (every row takes the stride-4 median); K3 on
     ``window_sum_stress_case`` (4 rows), as ``check_window_sum`` holds
-    it."""
+    it: the two-pass body with chunk 40's ids shuffled, the one-pass body
+    with them sorted back."""
     import torch
 
     from comapreduce_tpu_torch.ops.cuda_median import (
@@ -1068,16 +1151,22 @@ def phase_large_paths():
             raise SystemExit(f"K1's second body at L={L} disagrees with "
                              "its plain version")
         out[f"masked_fill_L{L}"] = float((got - want).abs().max())
-    ids, base, window, chunk, out_size = window_sum_stress_case()
-    vals = torch.randn((4, ids.size), generator=g, device=dev)
-    err, n_max = check_window_sum(
-        "stress case", vals, torch.as_tensor(ids, dtype=torch.int32,
-                                             device=dev),
-        torch.as_tensor(base, dtype=torch.int32, device=dev), window,
-        chunk, out_size)
+    # K3's two-pass body on the stress case as it is (ids shuffled in
+    # chunk 40), its one-pass body with those ids sorted back
+    for sorted_ids, key in ((False, "binned_window_sum_two_pass"),
+                            (True, "binned_window_sum")):
+        ids, base, window, chunk, out_size = window_sum_stress_case(
+            sorted_ids=sorted_ids)
+        vals = torch.randn((4, ids.size), generator=g, device=dev)
+        with k3_two_pass_checks():
+            err, n_max = check_window_sum(
+                "stress case" + (" (ids sorted)" if sorted_ids else ""),
+                vals, torch.as_tensor(ids, dtype=torch.int32, device=dev),
+                torch.as_tensor(base, dtype=torch.int32, device=dev),
+                window, chunk, out_size, ids_sorted=sorted_ids)
+        out[key] = err
     out["binned_window_sum_window"] = window
     out["binned_window_sum_max_terms"] = n_max
-    out["binned_window_sum"] = err
     log("large_paths", json.dumps(out))
     return out
 
@@ -1157,8 +1246,15 @@ def phase_full_chain(full, plan):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    bodies0 = dict(binned_window_sum.bodies)
     out = run_flagship(inputs, device="cuda", plan=plan)
     launches = {k: fn.launches for k, fn in counters.items()}
+    k3_bodies = {k: n - bodies0[k]
+                 for k, n in binned_window_sum.bodies.items()}
+    if k3_bodies != {"one_pass": launches["binned_window_sum"],
+                     "two_pass": 0}:
+        raise SystemExit(f"full chain: K3's bodies {k3_bodies}; every "
+                         "call must take the one-pass body")
     res = out["result"]
     for k, n in launches.items():
         if n <= 0:
@@ -1196,15 +1292,17 @@ def phase_full_chain(full, plan):
         "n_offsets": plan.n_offsets, "sample_window": plan.sample_window,
         "rank_window": plan.rank_window, "off_window": plan.off_window,
         "map_hit_fraction": hit_fraction, "launches": launches,
+        "k3_bodies": k3_bodies,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     log("full_chain", json.dumps(line))
     return line, launches, inputs
 
 
-# K3's two kernels (its partial pass and its output pass) share this
-# prefix: a profile counts two kernel launches a K3 launch
-K3_SYMBOL = "binned_window_"
+# K3's one-pass body, the one the main path takes: one kernel a launch
+# (the two-pass body's two kernels, its partial pass and its output pass,
+# are ``binned_window_partial_kernel`` and ``binned_window_out_kernel``)
+K3_SYMBOL = "binned_window_sorted_kernel"
 
 
 def kernel_share(kernels, name: str, busy_ms: float) -> dict:
@@ -1478,6 +1576,10 @@ def phase_field_profile(data, stage_log, top: int = 12):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k3 = kernel_share(kernels, K3_SYMBOL, busy_ms)
+    # the one-pass body's kernels against the launches the code derives
+    # for a two-level ground solve (a re-solve adds more)
+    k3["launches_derived"] = k3_launches(int(res.n_iter), ground=True,
+                                         nu=0)
     k4 = kernel_share(kernels, "windowed_gather_kernel", busy_ms)
     solve_s = wall - stage_log.seconds("coarse_pattern") - stage_log.seconds(
         "coarse_build")
@@ -7344,8 +7446,8 @@ def merged_chunk_check(geo, device: str = "cuda", shape=None,
     chunks of 8 x 4 096 pairs. K3 at the rank and offset sites through
     :func:`check_window_sum` (routing exact, values within the f32 bound,
     three launches the same bits) and K4 on a two-row source against its
-    plain version (bitwise); no gate refuses the wide windows (K3 sums a
-    window wider than its 4 096-bin shared slice slice by slice)."""
+    plain version (bitwise); no gate refuses the wide windows (K3's
+    one-pass body keeps no window on chip)."""
     import torch
 
     from comapreduce_tpu_torch.fieldrun import FIELD_FULL, OFFSET_LENGTH
@@ -7370,9 +7472,10 @@ def merged_chunk_check(geo, device: str = "cuda", shape=None,
     vals = torch.randn((1, P), generator=g, device=dev)
     rank = check_window_sum("merged rank", vals, dv["pair_rank"],
                             dv["rank_base"], p.rank_window, p.pair_chunk,
-                            p.n_rank)
+                            p.n_rank, ids_sorted=True)
     off = check_window_sum("merged off", vals, po_off, dv["off_base"],
-                           p.off_window, p.pair_chunk, p.n_offsets)
+                           p.off_window, p.pair_chunk, p.n_offsets,
+                           ids_sorted=True)
     src = torch.randn((2, p.n_offsets), generator=g, device=dev)
     args = (po_off, dv["off_base"], p.off_window, p.pair_chunk)
     if not bits_equal(windowed_gather(src, *args),
@@ -8061,14 +8164,33 @@ def main() -> int:
     port_log = logging.getLogger("comapreduce_tpu_torch")
     port_log.setLevel(logging.INFO)
     port_log.addHandler(stage_log)
-    # each phase's wall, lap by lap (a report key and a log line each)
+    # each phase's wall, lap by lap (a report key and a log line each),
+    # and the calls each K3 body took in it: the two-pass body only in
+    # this script's checks, the one-pass body in every phase that solves
+    from comapreduce_tpu_torch.mapmaking.cuda_binning import \
+        binned_window_sum
     walls, t_lap = {}, [time.perf_counter()]
+    report["k3_bodies"] = {}
+    k3_seen = [dict(binned_window_sum.bodies), K3_CHECK_TWO_PASS[0]]
 
     def lap(name: str) -> None:
         now = time.perf_counter()
         walls[name] = now - t_lap[0]
         t_lap[0] = now
         log(f"wall {name} {walls[name]:.1f} s")
+        bodies = dict(binned_window_sum.bodies)
+        checks = K3_CHECK_TWO_PASS[0] - k3_seen[1]
+        n = {"one_pass": bodies["one_pass"] - k3_seen[0]["one_pass"],
+             "two_pass": bodies["two_pass"] - k3_seen[0]["two_pass"]
+             - checks, "two_pass_checks": checks}
+        k3_seen[:] = [bodies, K3_CHECK_TWO_PASS[0]]
+        report["k3_bodies"][name] = n
+        log(f"k3_bodies {name} {json.dumps(n)}")
+        if n["two_pass"]:
+            raise SystemExit(f"phase {name}: K3's two-pass body ran "
+                             f"{n['two_pass']} times outside the checks")
+        if name in K3_SOLVING_LAPS and n["one_pass"] <= 0:
+            raise SystemExit(f"phase {name} never took K3's one-pass body")
 
     # the small field runs first: solve_band's plan memo holds one
     # pointing, and the full field's plan must stay in it for its bands
@@ -8152,6 +8274,8 @@ def main() -> int:
     launches["windowed_gather"] = field_launches["windowed_gather"]
     report["field_launches"] = field_launches
     report["mg_field_launches"] = mg_launches
+    for body in kernels["binned_window_sum"]["bodies"]:
+        body["launches"] = report["full_chain"]["k3_bodies"][body["body"]]
     for k, v in kernels.items():
         v["launches"] = launches[k]
         v["phase_m_launches"] = report["observability"]["launches"][k]
@@ -8166,7 +8290,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "phase_m_launches", "phase_n_launches", "phase_o_launches")
-    print(json.dumps({"kernels": [{k: v[k] for k in keys}
+    print(json.dumps({"kernels": [{k: v[k] for k in keys + ("bodies",)
+                                   if k in v}
                                   for v in kernels.values()]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

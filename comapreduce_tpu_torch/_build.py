@@ -253,12 +253,15 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
-def count_launch(fn) -> None:
+def count_launch(fn, body: str | None = None) -> None:
     """Add one to ``fn.launches`` (a kernel wrapper's counter; threads may
-    launch at once) and to the calling thread's tally, when one is open
+    launch at once), to ``fn.bodies[body]`` when the wrapper names the
+    body it launched, and to the calling thread's tally, when one is open
     (:func:`tally_launches`)."""
     with _launch_lock:
         fn.launches += 1
+        if body is not None:
+            fn.bodies[body] += 1
     tally = getattr(_thread, "tally", None)
     if tally is not None:
         tally[fn.__name__] += 1

@@ -5,25 +5,39 @@ Port of ``comapreduce_tpu/mapmaking/pallas_binning.py``:
 ``binned_window_sum`` (``csrc/binned_window_sum.cu``; re-exported by
 ``pointing_plan``, where the reference defines it) replaces
 ``binned_window_sum_pallas`` (``pallas_binning.py:204``, body
-``_scatter_kernel`` ``:173``). Bound: bytes — values R x M f32 and ids
-M i32 read once, out R x out_size f32 written once, its partial buffer
-(R x n_chunks x window f32) written and read once. Design: two passes
-that add in an order fixed by the inputs, so a sum is the same bits on
-every run (the TPU kernel's ordered grid gave it one order; CUDA blocks
-run concurrently, so float atomics would not). Pass 1, one block a
-chunk: a thread sums its runs of equal in-window ids in registers, a
-warp joins runs across its lanes with a segmented scan keyed on the id,
-and the warps add their runs one after the other into the chunk's window
-in shared memory, which the block writes to its partial row (a window
-wider than the shared slice is done slice by slice). Pass 2, one thread
-a bin: the partial entries of the chunks whose windows cover the bin,
-added in chunk order. Correct for ids in any order; sorted ids make the
-runs long. Against the ordered plain version the kernel agrees to f32
-summation-order tolerance.
+``_scatter_kernel`` ``:173``). Both of its bodies add in an order fixed
+by the inputs, R and their compile-time constants, so a sum is the same
+bits on every run (the TPU kernel's ordered grid gave it one order; CUDA
+blocks run concurrently, so float atomics would not).
 
-Dispatch follows the tensor's device: a CUDA tensor launches the
-kernel or raises, a CPU tensor takes the plain version. The TPU's VMEM
-gate (``pallas_binning_ok``) has no counterpart here.
+- One-pass body, ``ids_sorted=True`` (the six call sites of the planned
+  solvers, whose plan ids ascend over the whole array): a segmented sum
+  over tiles of ``ONE_PASS_TILE`` elements. Bound: bytes — values
+  R x M f32, ids M i32 and base read once, out R x out_size f32 written
+  once. Design: one launch, no memset, no scratch. A tile owns the bins
+  from just above the previous tile's last id up to its own last id
+  (from bin 0 in the first tile, to ``out_size`` in the last) and writes
+  each exactly once, a run's sum or 0; a thread sums its runs in
+  registers, a warp joins them with a segmented scan keyed on the id,
+  the warps in warp order; a run that continues past the tile is read
+  ahead by its owner. A descent in the ids fails the launch with a
+  device-side assert.
+- Two-pass body (the default): ids in any order inside a chunk, the TPU
+  kernel's contract. Bound: the same bytes plus its partial buffer
+  (R x n_chunks x window f32) written and read once. Pass 1, one block a
+  chunk, sums the chunk's window in shared memory into its partial row
+  (a window wider than the shared slice slice by slice); pass 2, one
+  thread a bin, adds the partial entries of the chunks whose windows
+  cover the bin in chunk order.
+
+Against the ordered plain version either body agrees to f32
+summation-order tolerance. ``binned_window_sum.launches`` counts one a
+call; ``binned_window_sum.bodies`` counts the calls each body took.
+
+Dispatch follows the tensor's device: a CUDA tensor launches the kernel
+or raises, a CPU tensor takes the plain version (whatever
+``ids_sorted`` says). The TPU's VMEM gate (``pallas_binning_ok``) has no
+counterpart here.
 
 ``windowed_gather`` (``csrc/windowed_gather.cu``) replaces
 ``windowed_gather_pallas`` (``pallas_binning.py:285``, body
@@ -50,13 +64,17 @@ import torch
 
 from comapreduce_tpu_torch import _build
 
-__all__ = ["binned_window_sum", "binned_window_sum_plain",
+__all__ = ["ONE_PASS_TILE", "binned_window_sum", "binned_window_sum_plain",
            "binned_window_sum_occupancy", "windowed_gather",
            "windowed_gather_occupancy", "windowed_gather_plain"]
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+#: elements a block of the one-pass body owns (``BW_TILE`` of
+#: ``csrc/binned_window_sum.cu``): with the kernel's thread layout it
+#: fixes that body's order of adds
+ONE_PASS_TILE = 2048
 
 
 def _check_layout(ids, base, chunk, M):
@@ -98,12 +116,17 @@ def binned_window_sum_plain(values: torch.Tensor, ids: torch.Tensor,
 
 def binned_window_sum(values: torch.Tensor, ids: torch.Tensor,
                       base: torch.Tensor, window: int, chunk: int,
-                      out_size: int) -> torch.Tensor:
-    """Sum ``values`` f32[..., M] into ``out[..., id]`` for plan-sorted,
-    chunk-windowed ids (``pointing_plan.py:423``): ids of chunk ``c``
-    outside ``[clip(base[c], 0, out_size), + window)`` or ``>= out_size``
-    drop; leading axes (the multi-RHS bands) share the ids. The kernel on
-    a CUDA tensor, the plain version on a CPU tensor."""
+                      out_size: int, *, ids_sorted: bool = False
+                      ) -> torch.Tensor:
+    """Sum ``values`` f32[..., M] into ``out[..., id]`` for chunk-windowed
+    ids (``pointing_plan.py:423``): ids of chunk ``c`` outside
+    ``[clip(base[c], 0, out_size), + window)`` or ``>= out_size`` drop;
+    leading axes (the multi-RHS bands) share the ids. ``ids_sorted``: the
+    caller vouches that the ids never descend over the whole array (a
+    plan's layouts), and a CUDA tensor takes the one-pass body, which
+    fails the launch on a descent; otherwise the two-pass body, right for
+    ids in any order inside a chunk. The kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
     if values.device.type == "cpu":
         return binned_window_sum_plain(values, ids, base, window, chunk,
                                        out_size)
@@ -117,46 +140,76 @@ def binned_window_sum(values: torch.Tensor, ids: torch.Tensor,
     if M == 0 or R == 0 or out_size == 0 or window <= 0:
         return torch.zeros(lead + (out_size,), dtype=torch.float32,
                            device=values.device)
-    # pass 2 writes every bin
+    # either body writes every bin
     out = torch.empty((R, out_size), dtype=torch.float32,
                       device=values.device)
     i32 = ids.to(torch.int32).contiguous()
     b32 = base.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+    if ids_sorted:
+        if M >= 2 ** 31 - 2 * ONE_PASS_TILE:
+            raise ValueError(f"binned_window_sum's one-pass body takes "
+                             f"fewer than 2**31 - {2 * ONE_PASS_TILE} "
+                             f"elements, got {M}")
+        # 16-byte loads of ids and of each band's values
+        vec = (M % 4 == 0 and v.data_ptr() % 16 == 0
+               and i32.data_ptr() % 16 == 0)
+        fn = _build.c_function("binned_window_sum",
+                               "cr_binned_window_sum_sorted",
+                               [_VP, _VP, _VP, _VP, _LL, _I, _I, _I, _I, _I,
+                                _VP])
+        _build.count_launch(binned_window_sum, "one_pass")
+        _build.check(fn(v.data_ptr(), i32.data_ptr(), b32.data_ptr(),
+                        out.data_ptr(), M, R, int(window), int(chunk),
+                        int(out_size), int(vec), stream),
+                     "binned_window_sum")
+        return out.reshape(lead + (out_size,))
     # the chunks' window sums (pass 1) and the flag of unsorted bases
     partial = torch.empty(R * (M // chunk) * int(window),
                           dtype=torch.float32, device=values.device)
     flag = torch.empty(1, dtype=torch.int32, device=values.device)
-    # 16-byte loads of ids and of each band's values
     vec = (M % 4 == 0 and chunk % 4 == 0 and v.data_ptr() % 16 == 0
            and i32.data_ptr() % 16 == 0)
     fn = _build.c_function("binned_window_sum", "cr_binned_window_sum",
                            [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _I, _I,
                             _I, _I, _VP])
-    _build.count_launch(binned_window_sum)
+    _build.count_launch(binned_window_sum, "two_pass")
     _build.check(fn(v.data_ptr(), i32.data_ptr(), b32.data_ptr(),
                     out.data_ptr(), partial.data_ptr(), flag.data_ptr(), M,
                     R, int(window), int(chunk), int(out_size), int(vec),
-                    torch.cuda.current_stream().cuda_stream),
+                    stream),
                  "binned_window_sum")
     return out.reshape(lead + (out_size,))
 
 
 binned_window_sum.launches = 0
+#: calls per body (``"one_pass"``, ``"two_pass"``)
+binned_window_sum.bodies = {"one_pass": 0, "two_pass": 0}
 
 
-def binned_window_sum_occupancy(R: int = 1,
-                                window: int = 4096) -> tuple[int, int]:
-    """``(blocks per SM, elements per pass)`` of K3's first pass at ``R``
-    bands and ``window`` bins on the current card: its resident blocks per
-    SM, as the CUDA occupancy API gives them for that shared window, and
-    the elements of a chunk one block takes per pass over it."""
-    fn = _build.c_function("binned_window_sum",
-                           "cr_binned_window_sum_occupancy", [_I, _I, _VP])
-    per_pass = ctypes.c_int(0)
-    n = fn(int(R), int(window), ctypes.byref(per_pass))
+def binned_window_sum_occupancy(R: int = 1, window: int = 4096, *,
+                                ids_sorted: bool = False
+                                ) -> tuple[int, int]:
+    """``(blocks per SM, elements)`` of a K3 body on the current card, as
+    the CUDA occupancy API gives its resident blocks: with ``ids_sorted``
+    the one-pass body at ``R`` bands (its staged bands) and the elements a
+    block owns (``ONE_PASS_TILE``); else the two-pass body's first pass at ``R``
+    bands and ``window`` bins (its shared window) and the elements of a
+    chunk one block takes per pass over it."""
+    elements = ctypes.c_int(0)
+    if ids_sorted:
+        fn = _build.c_function("binned_window_sum",
+                               "cr_binned_window_sum_sorted_occupancy",
+                               [_I, _VP])
+        n = fn(int(R), ctypes.byref(elements))
+    else:
+        fn = _build.c_function("binned_window_sum",
+                               "cr_binned_window_sum_occupancy",
+                               [_I, _I, _VP])
+        n = fn(int(R), int(window), ctypes.byref(elements))
     if n < 0:
         _build.check(-n, "binned_window_sum occupancy")
-    return n, per_pass.value
+    return n, elements.value
 
 
 def windowed_gather_plain(src: torch.Tensor, ids: torch.Tensor,

@@ -951,11 +951,12 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
     def pair_sum(v):
         return binned_window_sum(v, dv["sample_pair"], dv["sample_base"],
                                  plan.sample_window, plan.sample_chunk,
-                                 P_pad)
+                                 P_pad, ids_sorted=True)
 
     def rank_sum(pv):
         return binned_window_sum(pv, dv["pair_rank"], dv["rank_base"],
-                                 plan.rank_window, plan.pair_chunk, n_rank)
+                                 plan.rank_window, plan.pair_chunk, n_rank,
+                                 ids_sorted=True)
 
     perm_off = dv["pair_perm_off"].to(torch.int64)
     po_off = dv["pair_offset"][perm_off]
@@ -967,7 +968,8 @@ def destripe_planned(tod: torch.Tensor, weights: torch.Tensor,
 
     def off_sum(pv_off):
         return binned_window_sum(pv_off, po_off, dv["off_base"],
-                                 plan.off_window, plan.pair_chunk, n_off)
+                                 plan.off_window, plan.pair_chunk, n_off,
+                                 ids_sorted=True)
 
     # sharded plans: each shard's compact sums go into the global
     # hit-pixel space (an injective scatter, padding ranks to a drop

@@ -239,11 +239,12 @@ def destripe_pol_planned(tod, weights, psi, plan, n_iter: int = 100,
     def pair_sum(v):
         return binned_window_sum(v, dv["sample_pair"], dv["sample_base"],
                                  plan.sample_window, plan.sample_chunk,
-                                 P_pad)
+                                 P_pad, ids_sorted=True)
 
     def rank_sum(pv):
         return binned_window_sum(pv, dv["pair_rank"], dv["rank_base"],
-                                 plan.rank_window, plan.pair_chunk, n_rank)
+                                 plan.rank_window, plan.pair_chunk, n_rank,
+                                 ids_sorted=True)
 
     perm_off = dv["pair_perm_off"].to(torch.int64)
     po_off = dv["pair_offset"][perm_off]
@@ -255,7 +256,8 @@ def destripe_pol_planned(tod, weights, psi, plan, n_iter: int = 100,
 
     def off_sum(pv_off):
         return binned_window_sum(pv_off, po_off, dv["off_base"],
-                                 plan.off_window, plan.pair_chunk, n_off)
+                                 plan.off_window, plan.pair_chunk, n_off,
+                                 ids_sorted=True)
 
     # the pair aggregates in one launch: rows 0-2 w s_k (pws), 3-5
     # w d s_k (pwds), 6-8 w [cc, cs, ss], 9 the hit counts

@@ -3,7 +3,10 @@ body (rows too long to keep on chip, which the main path's shapes never
 take: keys in device scratch) and on rows at the edges of its
 selection, K2 (rolling median) at the main path's shape, at the edges of
 its selection, on odd and even windows and in its second body, K3
-(binned window sum) on a layout that stresses its one body, and K4
+(binned window sum) on a layout that stresses both bodies (the two-pass
+body with ids shuffled in a chunk, the one-pass body with them sorted
+back, and on runs that cross many of its tiles; a descent under
+``ids_sorted=True`` fails the launch), and K4
 (windowed gather) on every lane kind (in-window, out-of-window, sentinel
 ids >= S, clipped window starts) with two and three source rows and in
 its scalar body, each against its plain version. The edge rows, the
@@ -24,15 +27,19 @@ order at that length). K2 returns order statistics and their
 version's: bitwise on integer-valued sums (exact in f32 in any order)
 and, on real values, each bin within gamma(n-1) * sum|x| of its exact
 f64 sum, a bound that holds for every summation order
-(``chip_smoke.check_window_sum``); two launches on the same inputs give
-the same bits, sorted or shuffled ids, and so do the planned solver's
-fixed-order segment sums. K4 copies one source word per lane:
+(``chip_smoke.check_window_sum``); launches on the same inputs give the
+same bits, either body, and so do the planned solver's fixed-order
+segment sums. K4 copies one source word per lane:
 bitwise. ``precise_dot``: within u |exact| plus (depth + 2)^2 u^2
 sum|x y| of the float64 dot (``chip_smoke.phase_small_mg_banded``).
 Converged band solves, card against CPU: 5e-4 absolute on the
 null-space-invariant or mean-removed products (``chip_smoke.FIELD_ATOL``;
 the card sums in another order than the CPU).
 """
+
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -47,8 +54,8 @@ from comapreduce_tpu_torch.fieldrun import (FIELD_SMALL, MG_KW, OFFSET_LENGTH,
                                             make_field_band,
                                             make_field_band_1f)
 from comapreduce_tpu_torch.mapmaking.cuda_binning import (
-    binned_window_sum, binned_window_sum_plain, windowed_gather,
-    windowed_gather_plain)
+    ONE_PASS_TILE, binned_window_sum, binned_window_sum_plain,
+    windowed_gather, windowed_gather_plain)
 from comapreduce_tpu_torch.ops.cuda_median import (
     RM_OUT, fill_row_on_chip, masked_fill, masked_fill_plain,
     rolling_median_sorts, rolling_median_windows,
@@ -109,9 +116,28 @@ def test_cuda_masked_fill_edge_rows(cuda_device, L):
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+def _window_sum_within_bound(got, vals, it, bt, args):
+    """Each bin of ``got`` within gamma(n-1) * sum|x| of its exact sum."""
+    plain64 = [binned_window_sum_plain(torch.as_tensor(x), it.cpu(),
+                                       bt.cpu(), *args)
+               for x in (vals.astype(np.float32).astype(np.float64),
+                         np.abs(vals.astype(np.float32)).astype(np.float64),
+                         np.ones((1, vals.shape[-1])))]
+    exact, abs_sum, n = plain64[0], plain64[1], plain64[2][0]
+    ku = (n - 1).clamp(min=0) * F32_U
+    return bool(((got.cpu().double() - exact).abs()
+                 <= ku / (1 - ku) * abs_sum).all())
+
+
 @pytest.mark.cuda
-def test_cuda_window_sum_stress_case(cuda_device):
-    ids, base, window, chunk, out_size = window_sum_stress_case()
+@pytest.mark.parametrize("sorted_ids", [False, True],
+                         ids=["two_pass", "one_pass"])
+def test_cuda_window_sum_stress_case(cuda_device, sorted_ids):
+    """The two-pass body on the stress layout (ids shuffled in chunk 40),
+    the one-pass body on it with those ids sorted back; the launch counts
+    one call and one call of its body."""
+    ids, base, window, chunk, out_size = window_sum_stress_case(
+        sorted_ids=sorted_ids)
     assert window > 32768
     rng = np.random.default_rng(9)
     it = torch.as_tensor(ids, dtype=torch.int32, device=cuda_device)
@@ -122,37 +148,104 @@ def test_cuda_window_sum_stress_case(cuda_device):
     # must match bitwise
     ints = torch.as_tensor(rng.integers(-2, 3, (4, ids.size)).astype(
         np.float32), device=cuda_device)
-    before = binned_window_sum.launches
-    got = binned_window_sum(ints, it, bt, *args)
-    assert binned_window_sum.launches == before + 1
+    body = "one_pass" if sorted_ids else "two_pass"
+    before = binned_window_sum.launches, binned_window_sum.bodies[body]
+    got = binned_window_sum(ints, it, bt, *args, ids_sorted=sorted_ids)
+    assert (binned_window_sum.launches,
+            binned_window_sum.bodies[body]) == (before[0] + 1,
+                                                before[1] + 1)
     np.testing.assert_array_equal(
         got.cpu(), binned_window_sum_plain(ints.cpu(), it.cpu(), bt.cpu(),
                                            *args))
     vals = rng.normal(size=(4, ids.size))
     got = binned_window_sum(torch.as_tensor(vals.astype(np.float32),
                                             device=cuda_device),
-                            it, bt, *args).cpu().double()
-    plain64 = [binned_window_sum_plain(torch.as_tensor(x), it.cpu(),
-                                       bt.cpu(), *args)
-               for x in (vals.astype(np.float32).astype(np.float64),
-                         np.abs(vals.astype(np.float32)).astype(np.float64),
-                         np.ones((1, ids.size)))]
-    exact, abs_sum, n = plain64[0], plain64[1], plain64[2][0]
-    ku = (n - 1).clamp(min=0) * F32_U
-    assert bool(((got - exact).abs() <= ku / (1 - ku) * abs_sum).all())
+                            it, bt, *args, ids_sorted=sorted_ids)
+    assert _window_sum_within_bound(got, vals, it, bt, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3, 6])
+def test_cuda_window_sum_one_pass_runs_across_tiles(cuda_device, R):
+    """The one-pass body where runs cross many of its tiles: a run from
+    the first element, one of 3 tiles plus 17 in the middle (its owner
+    reads ahead), one ending on a tile's last element, one to the last
+    element, gaps of one and of thousands of bins, a raised window start
+    that drops terms inside a run, and a chunk (1000) that is not a
+    multiple of 4 (the scalar loads). Integer values bitwise; real ones
+    within the bound, the same bits over three launches."""
+    T = ONE_PASS_TILE
+    chunk = 1000
+    M = 20 * chunk
+    rng = np.random.default_rng(31)
+    ids = np.sort(rng.integers(0, 40_000, M))
+    ids[:T + 5] = ids[0]
+    a = 4 * T - 9
+    ids[a:a + 3 * T + 17] = ids[a]
+    ids[7 * T - 40:7 * T] = ids[7 * T - 40]
+    ids[-2 * T:] = ids[-2 * T]
+    ids = np.maximum.accumulate(ids)
+    ids[9000:] += 5000                      # a wide gap
+    blocks = ids.reshape(-1, chunk)
+    base = blocks[:, 0].copy()
+    base[5] += 1                            # drops the chunk's first id
+    window = int((blocks[:, -1] - base + 1).max())
+    out_size = int(ids[-1]) + 3000
+    it = torch.as_tensor(ids, dtype=torch.int32, device=cuda_device)
+    bt = torch.as_tensor(base, dtype=torch.int32, device=cuda_device)
+    args = (window, chunk, out_size)
+    ints = torch.as_tensor(rng.integers(-2, 3, (R, M)).astype(np.float32),
+                           device=cuda_device)
+    np.testing.assert_array_equal(
+        binned_window_sum(ints, it, bt, *args, ids_sorted=True).cpu(),
+        binned_window_sum_plain(ints.cpu(), it.cpu(), bt.cpu(), *args))
+    vals = rng.normal(size=(R, M))
+    v = torch.as_tensor(vals.astype(np.float32), device=cuda_device)
+    got = [binned_window_sum(v, it, bt, *args, ids_sorted=True).cpu()
+           for _ in range(3)]
+    assert _window_sum_within_bound(got[0], vals, it, bt, args)
+    for g in got[1:]:
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      got[0].numpy().view(np.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_window_sum_one_pass_fails_loudly_on_descending_ids(
+        cuda_device):
+    """``ids_sorted=True`` on ids that descend: the launch fails (a
+    device-side assert, which ends the process's CUDA context, so it runs
+    in a child process), never a silent wrong sum."""
+    code = textwrap.dedent("""
+        import torch
+        from comapreduce_tpu_torch.mapmaking.cuda_binning import \\
+            binned_window_sum
+        ids = torch.arange(8192, dtype=torch.int32, device="cuda")
+        ids[5000] = 3
+        base = torch.zeros(2, dtype=torch.int32, device="cuda")
+        binned_window_sum(torch.ones(8192, device="cuda"), ids, base, 8192,
+                          4096, 8192, ids_sorted=True)
+        torch.cuda.synchronize()
+        print("no failure")
+    """)
+    child = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=300)
+    assert child.returncode != 0 and "no failure" not in child.stdout
+    assert "device-side assert" in child.stderr
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shuffled", [False, True],
                          ids=["sorted", "shuffled"])
 def test_cuda_window_sum_same_bits_launch_to_launch(cuda_device, shuffled):
-    """K3 launched twice on the stress layout (ids shuffled inside each
-    chunk, or as planned): the same bytes; the planned solver's segment
-    sums (``ops.segment``, one-launch plans) twice: the same bytes."""
+    """K3 launched three times on the stress layout (ids sorted over the
+    whole array, the one-pass body; or shuffled inside each chunk, the
+    two-pass body): the same bytes; the planned solver's segment sums
+    (``ops.segment``, one-launch plans) twice: the same bytes."""
     from comapreduce_tpu_torch.ops.segment import (plan_segments,
                                                    segment_sums)
 
-    ids, base, window, chunk, out_size = window_sum_stress_case()
+    ids, base, window, chunk, out_size = window_sum_stress_case(
+        sorted_ids=True)
     rng = np.random.default_rng(12)
     if shuffled:
         perm = np.concatenate([c * chunk + rng.permutation(chunk)
@@ -162,10 +255,12 @@ def test_cuda_window_sum_same_bits_launch_to_launch(cuda_device, shuffled):
     bt = torch.as_tensor(base, dtype=torch.int32, device=cuda_device)
     vals = torch.as_tensor(rng.normal(size=(4, ids.size)).astype(
         np.float32), device=cuda_device)
-    a = binned_window_sum(vals, it, bt, window, chunk, out_size).cpu()
-    b = binned_window_sum(vals, it, bt, window, chunk, out_size).cpu()
-    np.testing.assert_array_equal(a.numpy().view(np.int32),
-                                  b.numpy().view(np.int32))
+    a, b, c = (binned_window_sum(vals, it, bt, window, chunk, out_size,
+                                 ids_sorted=not shuffled).cpu()
+               for _ in range(3))
+    for x in (b, c):
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      x.numpy().view(np.int32))
     grp = np.sort(rng.integers(0, 5000, ids.size)) if not shuffled \
         else rng.integers(0, 5000, ids.size)
     plan = plan_segments(grp, 5000, one_launch=True)

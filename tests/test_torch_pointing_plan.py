@@ -29,7 +29,7 @@ from comapreduce_tpu_torch.mapmaking.cuda_binning import \
     binned_window_sum_plain
 from comapreduce_tpu_torch.mapmaking.pixel_space import PixelSpace
 from comapreduce_tpu_torch.mapmaking.pointing_plan import (
-    binned_window_sum, build_pointing_plan)
+    binned_window_sum, build_pointing_plan, build_sharded_plans)
 
 SUM_RTOL = 2e-6
 
@@ -110,44 +110,54 @@ def test_plan_from_reference_round_trip():
         plan_from_reference({}, npix=1)
 
 
-def _small_plan(which):
-    """The plan the BENCH_SMALL flagship, the FIELD_SMALL field run or a
-    random pointing (sample chunks of 512, pair chunks of 256) gives."""
+def _small_plans(which):
+    """The plans the BENCH_SMALL flagship, the FIELD_SMALL field run or a
+    random pointing (sample chunks of 512, pair chunks of 256; also with
+    merged pair chunks, ``pair_batch=2``, and as two shards'
+    ``build_sharded_plans``) give."""
     if which == "bench_small":
-        return build_pointing_plan(observation_geometry(SMALL)[3],
-                                   SMALL.nx * SMALL.ny, SMALL.offset_length)
+        return [build_pointing_plan(observation_geometry(SMALL)[3],
+                                    SMALL.nx * SMALL.ny, SMALL.offset_length)]
     if which == "field_small":
-        return build_pointing_plan(field_geometry(FIELD_SMALL)[0],
-                                   FIELD_SMALL.nx * FIELD_SMALL.ny,
-                                   OFFSET_LENGTH)
+        return [build_pointing_plan(field_geometry(FIELD_SMALL)[0],
+                                    FIELD_SMALL.nx * FIELD_SMALL.ny,
+                                    OFFSET_LENGTH)]
     pix = np.random.default_rng(8).integers(-20, 420, 6000)
-    return build_pointing_plan(pix, 400, 30, sample_chunk=512,
-                               pair_chunk=256)
+    if which == "sharded":
+        return build_sharded_plans(pix, 400, 30, 2, sample_chunk=512,
+                                   pair_chunk=128)
+    return [build_pointing_plan(pix, 400, 30, sample_chunk=512,
+                                pair_chunk=256,
+                                pair_batch=2 if which == "merged" else 1)]
 
 
-@pytest.mark.parametrize("which", ["bench_small", "field_small", "random"])
+@pytest.mark.parametrize("which", ["bench_small", "field_small", "random",
+                                   "merged", "sharded"])
 def test_k3_sites_ids_ascending_within_windows(which):
-    """At each of K3's three call sites the plan's ids ascend over the
-    whole array and every chunk lies inside its window, so K3's runs of
-    equal ids are as long as the data allows (K3 is right for ids in any
-    order; its speed rests on this)."""
-    plan = _small_plan(which)
-    perm_off = plan.pair_perm_off.astype(np.int64)
-    sites = {
-        "pair_sum": (plan.sample_pair, plan.sample_base, plan.sample_window,
-                     plan.sample_chunk),
-        "rank_sum": (plan.pair_rank, plan.rank_base, plan.rank_window,
-                     plan.pair_chunk),
-        "off_sum": (plan.pair_offset[perm_off], plan.off_base,
-                    plan.off_window, plan.pair_chunk),
-    }
-    for site, (ids, base, window, chunk) in sites.items():
-        ids = np.asarray(ids, np.int64)
-        assert ids.size % chunk == 0 and ids.size // chunk == base.size
-        assert (np.diff(ids) >= 0).all(), site
-        blocks = ids.reshape(-1, chunk)
-        assert (blocks[:, -1] - blocks[:, 0] + 1 <= window).all(), site
-        assert (blocks[:, 0] == base).all(), site
+    """At each of K3's three call sites (those of ``destripe_planned`` and
+    of ``destripe_pol_planned``, which sum over the same three layouts)
+    the plan's ids ascend over the whole array and every chunk lies
+    inside its window, so K3's runs of equal ids are as long as the data
+    allows and its one-pass body (``ids_sorted=True``, which the six call
+    sites pass) holds; the two-pass body is right for ids in any order
+    inside a chunk. On merged pair chunks and on every shard's plan too."""
+    for plan in _small_plans(which):
+        perm_off = plan.pair_perm_off.astype(np.int64)
+        sites = {
+            "pair_sum": (plan.sample_pair, plan.sample_base,
+                         plan.sample_window, plan.sample_chunk),
+            "rank_sum": (plan.pair_rank, plan.rank_base, plan.rank_window,
+                         plan.pair_chunk),
+            "off_sum": (plan.pair_offset[perm_off], plan.off_base,
+                        plan.off_window, plan.pair_chunk),
+        }
+        for site, (ids, base, window, chunk) in sites.items():
+            ids = np.asarray(ids, np.int64)
+            assert ids.size % chunk == 0 and ids.size // chunk == base.size
+            assert (np.diff(ids) >= 0).all(), site
+            blocks = ids.reshape(-1, chunk)
+            assert (blocks[:, -1] - blocks[:, 0] + 1 <= window).all(), site
+            assert (blocks[:, 0] == base).all(), site
 
 
 def _windowed(M, out_size, chunk, seed=0):

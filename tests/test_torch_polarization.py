@@ -247,9 +247,10 @@ def test_entry_contract_and_k3_call_count(monkeypatch):
     calls = []
     real = pol.binned_window_sum
 
-    def counting(values, *args):
+    def counting(values, *args, **kw):
         calls.append(tuple(values.shape[:-1]))
-        return real(values, *args)
+        assert kw == {"ids_sorted": True}
+        return real(values, *args, **kw)
 
     monkeypatch.setattr(pol, "binned_window_sum", counting)
     res = pol.destripe_pol_planned(d, weights, psi, plan, n_iter=30,

@@ -49,12 +49,12 @@ from test_torch_polarization import _graded_diversity  # noqa: E402
 F64_SUMS = [False]
 
 
-def _k3(values, *args):
+def _k3(values, *args, **kw):
     """The port's K3 plain version, its sums rounded once from f64 when
     ``F64_SUMS[0]``."""
     if F64_SUMS[0]:
-        return _PLAIN(values.double(), *args).float()
-    return _PLAIN(values, *args)
+        return _PLAIN(values.double(), *args, **kw).float()
+    return _PLAIN(values, *args, **kw)
 
 
 _PLAIN = pol.binned_window_sum
