@@ -270,15 +270,21 @@ Phases, in order; any failure exits non-zero and no result is printed:
    ``destripe_pol`` at FIELD_SMALL with an I/Q/U sky seen through the
    demo's polarization angle, card against CPU (within ``POL_ATOL``:
    the reference test's tolerances for the scatter oracle, measured ones
-   for the planned solve; hits equal); N.2
+   for the planned solve; hits equal), then the reference test's hard
+   polarized problem on the card, 300 iterations survived and landing
+   under its 5e-3; N.2
    ``destripe_pol_planned`` on the full field's band-0 pointing (4 x 19
    x 135 700 samples, the 480 x 480 plan) with I, Q, U and 1/f offsets,
    150 iterations, twice and bitwise, K3 launched ``7 + 2 k`` times,
    the recovered Q and U against the injection; N.3 ``tuning.Tuner``
    over the solver group (mg_block x mg_smooth) on the full field's band
-   0, multigrid, 60 iterations, 6 candidates, 2 repeats, and over the
-   stage group (feed_batch) at L.2's bucket, a second tuner on the same
-   cache taking 0 measurements, then ``run_destriper.main`` on phase F's
+   0, multigrid, 60 iterations, 6 candidates, 2 repeats, over the plan
+   group (pair_batch 1, 2, 4, 8, each plan built on the host outside the
+   timed solves) on band 0's bucket, and over the stage group
+   (feed_batch) at L.2's bucket, a second tuner on the same cache taking
+   0 measurements, the auto plan under ``[tuning]`` the winner's layout
+   and its solve the untuned one's bits, then ``run_destriper.main`` on
+   phase F's
    small store with ``[Tuning]`` logging the applied winners, its maps
    held to the untuned run's. (Phase E runs no ``SkyDip`` after its
    chain: phase J.1 runs it at the full F, B and C.)
@@ -6822,18 +6828,22 @@ POL_DIR = os.path.join(ROOT, "chiprun_out", "pol_tuning")
 # N.1's card-against-CPU limits (offsets, destriped maps, naive maps).
 # The scatter oracle takes the reference test's planned-against-scatter
 # tolerances (tests/test_polarization.py:105-114). The planned solve is
-# held wider: at FIELD_SMALL the floored-Jacobi CG stops near 1e-5 on
-# pixels of little angle diversity, whose near-singular 3 x 3 inverses
-# amplify rounding. Measured: rounding its K3 sums once in f64 instead
-# of in f32 moves its offsets 0.7e-3 to 0.9e-3, its destriped maps
-# 3.7e-3 and its naive maps 3.1e-4 at 40 to 100 iterations
-# (tests/torch_pol_spread.py, on the CPU); the card against the CPU gave
-# offsets 2.0e-3, destriped maps 6.1e-3 and naive maps 2.0e-4 (on an
-# H100). About 2.5, 3 and 5 times those.
+# held wider, as set when its 3 x 3 inverses were f32: then rounding its
+# K3 sums once in f64 moved its offsets 0.7e-3 to 0.9e-3, its destriped
+# maps 3.7e-3 and its naive maps 3.1e-4 at 40 to 100 iterations, and the
+# card against the CPU gave 2.0e-3, 6.1e-3 and 2.0e-4 (on an H100).
+# With the inverses in f64 the same rounding moves them 1.9e-4 (6.2e-6
+# from 60 iterations), 5.3e-4 and 2.5e-4 (tests/torch_pol_spread.py, on
+# the CPU), and the card against the CPU gave 9.5e-6, 1.4e-4 and
+# 1.1e-4 (on an H100); the limits are kept.
 POL_ATOL = {"scatter": (2e-3, 2e-3, 1e-3), "planned": (5e-3, 2e-2, 1e-3)}
 # the production budget of the planned solve's docstring
 POL_N_ITER = 150
 POL_SMALL_ITER = 100
+# the reference test's hard problem (tests/test_polarization.py:140): its
+# budget, and the landing level it holds the floored Jacobi to
+POL_HARD_ITER = 300
+POL_HARD_BOUND = 5e-3
 # the bench's sweep settings (bench.py:2625-2690), two repeats to fit
 # the phase's budget: a candidate's best of two timed solves, not three
 TUNE_N_ITER = 60
@@ -6874,6 +6884,29 @@ def pol_band(pixels, npix: int, n_groups: int, seed: int) -> dict:
             "I": I, "Q": Q, "U": U}
 
 
+def pol_hard_problem() -> tuple:
+    """The reference test's hard polarized problem
+    (``tests/test_polarization.py:140``): CES pointing of two feeds
+    (``flagship.ces_pixels``) over 64 x 64 pixels, a random walk of 0.3
+    an offset of 50 samples, I of rms 1 and white noise of 1 through an
+    angle sweeping 20 turns, unit weights. ``(tod, weights, psi, pixels,
+    npix, offset_length)``, numpy."""
+    from comapreduce_tpu_torch.flagship import ces_pixels
+
+    F, T, nx, L = 2, 10_000, 64, 50
+    rng = np.random.default_rng(0)
+    pix = np.concatenate([ces_pixels(T, nx, nx, f, F) for f in range(F)])
+    n = (pix.size // L) * L
+    pix = pix[:n]
+    toff = np.cumsum(rng.normal(0, 0.3, n // L)).astype(np.float32)
+    I = rng.normal(0, 1.0, nx * nx)
+    psi = (np.linspace(0, 40 * np.pi, n)
+           + rng.normal(0, 0.2, n)).astype(np.float32)
+    tod = (I[pix] + np.repeat(toff, L)
+           + rng.normal(0, 1.0, n)).astype(np.float32)
+    return tod, np.ones(n, np.float32), psi, pix, nx * nx, L
+
+
 def pol_gaps(got, want) -> dict:
     """Largest card-against-CPU gaps of two polarized results (offsets,
     destriped and naive maps on the pixels solvable in both), and the
@@ -6900,7 +6933,9 @@ def phase_pol_small(devices=("cuda", "cpu")) -> dict:
     maps (on the pixels solvable in both) within ``POL_ATOL``, hit maps
     equal (the solvable masks' differences reported: a pixel at the
     ``det > 1e-6`` threshold may flip); on the card the planned solve
-    launches K3 ``7 + 2 k`` times."""
+    launches K3 ``7 + 2 k`` times. Then :func:`pol_hard_problem` on the
+    first device: ``POL_HARD_ITER`` iterations with no early stop (or
+    convergence), landing below ``POL_HARD_BOUND``."""
     import torch
 
     from comapreduce_tpu_torch.fieldrun import (FIELD_SMALL, OFFSET_LENGTH,
@@ -6947,7 +6982,21 @@ def phase_pol_small(devices=("cuda", "cpu")) -> dict:
                 or not gaps["n_solvable"]):
             raise SystemExit(f"pol small {path}: card against CPU {gaps}, "
                              f"K3 {k3} launches, derived {want_k3}")
+    # the hard problem on the first device: K3's sums in its order there
+    tod, w, psi, hpix, hnpix, L = pol_hard_problem()
+    hard = destripe_pol_planned(tod, w, psi,
+                                build_pointing_plan(hpix, hnpix, L),
+                                n_iter=POL_HARD_ITER, threshold=1e-6,
+                                device=devices[0])
+    out["hard"] = {"device": devices[0], "n_iter": int(hard.n_iter),
+                   "residual": float(hard.residual),
+                   "bound": POL_HARD_BOUND}
     log("pol_small", json.dumps(out))
+    if not ((int(hard.n_iter) == POL_HARD_ITER
+             or float(hard.residual) < 1e-6)
+            and float(hard.residual) < POL_HARD_BOUND
+            and bool(torch.isfinite(hard.iqu_destriped).all())):
+        raise SystemExit(f"pol hard problem: {out['hard']}")
     return out
 
 
@@ -6959,8 +7008,9 @@ def phase_pol_full(field_plan, geo, device: str = "cuda") -> tuple:
     finite, the solvable mask not empty, K3's launches of the first run
     ``7 + 2 k`` (R = 10 once, R = 7 once, R = 3 ``k + 2`` times, R = 1
     ``k + 3`` times). Reports the recovered Q and U error against the
-    injection, the walls and the peak. Returns the line and the
-    launches. (``device="cpu"`` rehearses it on a small plan.)"""
+    injection, the walls and the peak, and on the card the 3 x 3 work's
+    device times in f64 and f32 (:func:`pol_3x3_ms`). Returns the line
+    and the launches. (``device="cpu"`` rehearses it on a small plan.)"""
     import torch
 
     from comapreduce_tpu_torch.mapmaking.polarization import \
@@ -7010,12 +7060,51 @@ def phase_pol_full(field_plan, geo, device: str = "cuda") -> tuple:
         line[f"{s}_median_abs_err"] = float(np.median(np.abs(
             m[ok, j] - d[s][ok])))
         line[f"{s}_rms_injected"] = float(np.std(d[s][ok]))
+    if on_card:
+        line["three_by_three_ms"] = pol_3x3_ms(geo[0], field_plan.npix, d)
     log("pol_full", json.dumps(line))
     if not (same and finite and ok.any() and launches == want):
         raise SystemExit(f"pol full: bitwise {same}, finite {finite}, "
                          f"solvable {int(ok.sum())}, launches {launches} "
                          f"against {want}")
     return line, launches
+
+
+def pol_3x3_ms(pixels, npix: int, d: dict) -> dict:
+    """Device ms (:func:`cuda_ms`) of the planned polarized solve's
+    per-pixel 3 x 3 work at N.2's hit pixels: the masked prefactor (once
+    a solve) and one map solve (``k + 2`` a solve of ``k`` iterations),
+    in float64 as the solve runs them and in float32 (the reference's
+    arithmetic), on the normal matrices of N.2's pointing and weights."""
+    import torch
+
+    from comapreduce_tpu_torch.mapmaking import polarization as pol
+
+    dev = torch.device("cuda")
+    psi = torch.as_tensor(d["psi"], device=dev)
+    state = pol._pol_accumulate(
+        torch.as_tensor(pixels, device=dev).long(),
+        torch.as_tensor(d["weights"], device=dev), torch.cos(2.0 * psi),
+        torch.sin(2.0 * psi), npix)
+    hit = state.hits > 0
+    ata, ok = state.ata[hit].contiguous(), state.rcond_ok[hit]
+    scale = pol._ata_scale(ata)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    b = torch.randn((3, ata.shape[0]), generator=g, device=dev)
+    zero = torch.zeros((), device=dev)
+
+    def prefactor_f32():
+        return torch.where(ok[:, None, None],
+                           torch.linalg.inv(pol._tikhonov(ata, scale)), zero)
+
+    inv64, inv32 = pol._masked_inverse(ata, scale, ok), prefactor_f32()
+    return {"pixels": int(ata.shape[0]),
+            "prefactor_f64": cuda_ms(
+                lambda: pol._masked_inverse(ata, scale, ok)),
+            "prefactor_f32": cuda_ms(prefactor_f32),
+            "map_solve_f64": cuda_ms(lambda: pol._apply_inverse(inv64, b)),
+            "map_solve_f32": cuda_ms(lambda: pol._apply_inverse(inv32, b))}
 
 
 def stage_sweep_bucket(**overrides) -> tuple:
@@ -7068,8 +7157,47 @@ def multigrid_builds(data, blocks=(8, 16, 32)) -> dict:
     return futures
 
 
+def plan_builds(data, batches=(2, 4, 8)) -> dict:
+    """``{pair_batch: future}`` of the pointing plans of ``data`` with
+    merged pair chunks (host, ``offset_length`` 50), each on a thread of
+    its own, started at once: the plan sweep's candidates, built while
+    the card works on N.1 and N.2."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from comapreduce_tpu_torch.fieldrun import OFFSET_LENGTH
+    from comapreduce_tpu_torch.mapmaking.pointing_plan import \
+        build_pointing_plan
+
+    def build(pb):
+        t0 = time.perf_counter()
+        plan = build_pointing_plan(data.pixels, data.npix, OFFSET_LENGTH,
+                                   pair_batch=pb)
+        return plan, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(max_workers=len(batches),
+                              thread_name_prefix="plan-build")
+    futures = {pb: pool.submit(build, pb) for pb in batches}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def same_plan(a, b) -> bool:
+    """Two pointing plans byte for byte: every array and static field."""
+    for f in dataclasses.fields(a):
+        if f.name == "_device":
+            continue
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if not (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                    and x.dtype == y.dtype and np.array_equal(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
 def phase_tuning(band0, field_plan, store_small, stage_log,
-                 device: str = "cuda", mg_builds=None,
+                 device: str = "cuda", mg_builds=None, merged_plans=None,
                  **scenario) -> dict:
     """N.3: the autotuner on the card, its winners in
     ``chiprun_out/pol_tuning/tuning.jsonl``.
@@ -7078,11 +7206,24 @@ def phase_tuning(band0, field_plan, store_small, stage_log,
       band 0, offsets only, multigrid ``destripe_planned`` at TUNE_N_ITER
       iterations (the bench's sweep): each candidate's hierarchy built on
       the host outside the timed solves, each thunk synchronised;
+    - the ``plan`` group (pair_batch) at band 0's ``(N, L)`` bucket:
+      the same multigrid solve (``mg_block`` 8, ``mg_smooth`` 1, as
+      ``bench.py:2645-2680`` sweeps it) on each candidate's plan, built
+      on the host outside the timed solves (``merged_plans``, the
+      ``field_plan`` at 1);
     - the ``stage`` group (feed_batch) at L.2's bucket: the atmosphere
       fit of ``AtmosphereRemoval`` over its 19 feeds in the candidate's
       chunks, on one card-made feed block;
     - a second ``Tuner`` on the same cache: 0 measurements, every sweep a
       hit; ``invalid_proposed`` 0 in both;
+    - under ``[tuning]`` over the winners, ``build_pointing_plan`` with
+      the auto ``pair_batch`` gives the plan winner's layout byte for
+      byte, and a solve on it the untuned solve's bits: merged chunks
+      change only the plan's padding, and K3's one-pass body sums in the
+      order of the plan's ascending ids whatever the chunks (the
+      reference allows rounding, ``pointing_plan.py:224-226``: its MXU
+      groups the sums by chunk). Every candidate's solve is held the
+      same way;
     - ``cli.run_destriper.main`` on phase F's small store with
       ``[Destriper] preconditioner = multigrid``, untuned and then with
       ``[Tuning] enabled`` over the winners: the tuned run logs the
@@ -7091,10 +7232,10 @@ def phase_tuning(band0, field_plan, store_small, stage_log,
       within 10 times the larger residual the two solves reached (of the
       map's scale).
 
-    ``mg_builds``: :func:`multigrid_builds` of ``band0`` started earlier
-    (default: started here). ``device="cpu"`` with a small band, plan
-    and ``scenario`` (knobs of L.2's scenario) rehearses the phase on
-    the CPU."""
+    ``mg_builds``: :func:`multigrid_builds` of ``band0`` started earlier,
+    ``merged_plans`` its :func:`plan_builds` (default: started here).
+    ``device="cpu"`` with a small band, plan and ``scenario`` (knobs of
+    L.2's scenario) rehearses the phase on the CPU."""
     import torch
 
     from comapreduce_tpu_torch.cli.run_destriper import main as rd_main
@@ -7104,9 +7245,12 @@ def phase_tuning(band0, field_plan, store_small, stage_log,
     from comapreduce_tpu_torch.ops.reduce import (device_hbm_bytes,
                                                   stage_feed_batches)
     from comapreduce_tpu_torch.ops.segment import plan_segments
+    from comapreduce_tpu_torch.mapmaking.pointing_plan import \
+        build_pointing_plan
     from comapreduce_tpu_torch.tuning import (TUNING, SpaceContext, Tuner,
-                                              TuningCache, solver_bucket,
-                                              stage_bucket, tuning_path)
+                                              TuningCache, plan_bucket,
+                                              solver_bucket, stage_bucket,
+                                              tuning_path)
     from comapreduce_tpu_torch.tuning.cache import _backend_identity
 
     t_phase = time.perf_counter()
@@ -7120,12 +7264,34 @@ def phase_tuning(band0, field_plan, store_small, stage_log,
     tod = torch.as_tensor(band0.tod, device=dev)
     w = torch.as_tensor(band0.weights, device=dev)
     mg_builds = mg_builds or multigrid_builds(band0)
+    merged_plans = merged_plans or plan_builds(band0)
     hier, host_s = {}, {}
+    plans, plan_s, plan_solves = {1: field_plan}, {}, {}
+
+    def hierarchy(b):
+        if b not in hier:
+            hier[b], host_s[b] = mg_builds[b].result()
+        return hier[b]
+
+    def plan_solve(plan):
+        return destripe_planned(tod, w, plan, n_iter=TUNE_N_ITER,
+                                threshold=1e-6, mg=hierarchy(8),
+                                mg_smooth=1)
+
+    def plan_thunk(combo):
+        pb = int(combo["pair_batch"])
+        if pb not in plans:
+            plans[pb], plan_s[pb] = merged_plans[pb].result()
+
+        def thunk():
+            plan_solves[pb] = plan_solve(plans[pb])
+            if on_card:
+                torch.cuda.synchronize()
+        return thunk
 
     def solver_thunk(combo):
         b = int(combo["mg_block"])
-        if b not in hier:
-            hier[b], host_s[b] = mg_builds[b].result()
+        hierarchy(b)
 
         def thunk():
             destripe_planned(tod, w, field_plan, n_iter=TUNE_N_ITER,
@@ -7166,6 +7332,10 @@ def phase_tuning(band0, field_plan, store_small, stage_log,
          SpaceContext(n_samples=int(band0.tod.size), offset_length=L,
                       platform=platform, hbm_bytes=hbm),
          solver_thunk, {"mg_block": 8, "mg_smooth": 1}),
+        ("plan", plan_bucket(int(band0.tod.size), L),
+         SpaceContext(n_samples=int(band0.tod.size), offset_length=L,
+                      platform=platform, hbm_bytes=hbm),
+         plan_thunk, {"pair_batch": 1}),
         ("stage", stage_bucket(F, B, C, Tb, 1),
          SpaceContext(F=F, B=B, C=C, T=Tb, S=Sb, L=Lb, platform=platform,
                       hbm_bytes=hbm),
@@ -7192,7 +7362,48 @@ def phase_tuning(band0, field_plan, store_small, stage_log,
             or cold["cache_misses"] != len(sweeps)):
         raise SystemExit(f"tuning: cold sweep {cold}, warm {warm}")
     winners = {group: recs[(group, 0)] for group, *_ in sweeps}
-    del hier, tod, w, raw, mask
+    # the auto plan under [tuning], its solve, and every candidate's
+    # solve, against the untuned plan's solve
+    win_pb = int(winners["plan"]["winner"]["pair_batch"])
+    TUNING.configure(POL_DIR, {"enabled": True})
+    try:
+        t0 = time.perf_counter()
+        tuned_plan = build_pointing_plan(band0.pixels, band0.npix, L)
+        tuned_build_s = time.perf_counter() - t0
+    finally:
+        TUNING.close()
+    tuned_layout = (tuned_plan.pair_batch == win_pb
+                    and same_plan(tuned_plan, plans[win_pb]))
+    plan_solves["tuned"] = plan_solve(tuned_plan)
+    base = plan_solves[1]
+    plan_bits = {str(k): all(bits_equal(getattr(r, f), getattr(base, f))
+                             for f in ("offsets", "destriped_map",
+                                       "naive_map", "residual"))
+                 for k, r in plan_solves.items()}
+    walls = winners["plan"]["walls_ms"]
+    plan_line = {
+        "candidates_ms": walls, "winner": win_pb,
+        "default_ms": winners["plan"]["default_ms"],
+        "best_ms": winners["plan"]["best_ms"],
+        # the winner's margin over the default (0 when it is the
+        # default) and the fastest challenger's (negative: slower)
+        "margin": (1.0 - winners["plan"]["best_ms"]
+                   / winners["plan"]["default_ms"]),
+        "best_challenger_margin": 1.0 - min(
+            v for k, v in walls.items() if k != "pair_batch=1")
+        / winners["plan"]["default_ms"],
+        "build_s": plan_s, "tuned_build_s": tuned_build_s,
+        "tuned_pair_batch": tuned_plan.pair_batch,
+        "tuned_layout_equal": bool(tuned_layout),
+        "P_pad": {str(pb): int(p.pair_rank.shape[0])
+                  for pb, p in plans.items()},
+        "solve_bits_equal": plan_bits,
+        "n_iter": int(base.n_iter), "residual": float(base.residual)}
+    log("plan_sweep", json.dumps(plan_line))
+    if not (tuned_layout and all(plan_bits.values())
+            and set(plans) == {1, 2, 4, 8}):
+        raise SystemExit(f"tuning: the plan sweep {plan_line}")
+    del hier, tod, w, raw, mask, plans, plan_solves, tuned_plan
     if on_card:
         torch.cuda.empty_cache()
 
@@ -7238,7 +7449,8 @@ def phase_tuning(band0, field_plan, store_small, stage_log,
             "winners": {k: {f: v.get(f) for f in (
                 "winner", "default", "best_ms", "default_ms", "candidates",
                 "measurements", "walls_ms")} for k, v in winners.items()},
-            "stage_bucket": [F, B, C, Tb, Sb, Lb], "consult": runs,
+            "stage_bucket": [F, B, C, Tb, Sb, Lb], "plan": plan_line,
+            "consult": runs,
             "map_gap_of_scale": gap, "gap_limit": 10 * res_max,
             "cache": cache_path}
     line["phase_s"] = time.perf_counter() - t_phase
@@ -7259,10 +7471,11 @@ def phase_pol_tuning(field_plan, geo, band0, store_small,
     t0 = time.perf_counter()
     # N.3's host builds run on threads while N.1 and N.2 use the card
     builds = multigrid_builds(band0)
+    merged = plan_builds(band0)
     out = {"small": phase_pol_small()}
     out["full"], out["launches"] = phase_pol_full(field_plan, geo)
     out["tuning"] = phase_tuning(band0, field_plan, store_small, stage_log,
-                                 mg_builds=builds)
+                                 mg_builds=builds, merged_plans=merged)
     out["phase_s"] = time.perf_counter() - t0
     log(f"phase N {out['phase_s']:.1f} s")
     return out

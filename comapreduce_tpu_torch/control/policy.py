@@ -49,9 +49,7 @@ RUNG_ORDER = ("none", "jacobi", "twolevel", "multigrid")
 ESCALATE_RATIO = 1.5
 
 #: a program's temporaries above which pair_batch is halved: the
-#: reference's 2 GiB, not measured anew — the port builds pair_batch 1
-#: only (a larger one raises in build_pointing_plan), so on the card
-#: the rule has nothing to halve
+#: reference's 2 GiB, not measured anew on the card
 PAIR_TEMP_BUDGET = 2 << 30
 
 def rung_health(records: list, bucket: str = "") -> dict:

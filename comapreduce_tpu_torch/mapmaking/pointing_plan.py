@@ -11,10 +11,12 @@ a windowed scatter (``binned_window_sum`` -> kernel K3).
 binning step (K3 and K4 then see chunks of ``pair_chunk x pair_batch``
 pairs and the wider windows they span), byte for byte the reference's
 layout. Its auto value (``None``, or ``COMAP_PAIR_BATCH`` unset / 0 /
-``auto``) is 1, what the reference's rule gives off the TPU: merging
-was an MXU trade there, and the H100 has measured no reason for another
-value yet. So a ``[tuning]`` ``plan`` winner other than 1 (one the
-reference measured on its MXU) is skipped with a log line.
+``auto``) is, as in the reference, a ``[tuning]`` ``plan`` winner for
+the plan's ``(N, L)`` bucket where one was measured under this
+process's identity (``("gpu", card name)`` on the card: a winner of
+another device keys elsewhere), else 1, what the reference's rule gives
+off the TPU (merging was an MXU trade there). On the card K3's one-pass
+body sums in an order that the merged chunks do not change.
 
 :func:`build_sharded_plans` builds one plan per contiguous time shard,
 all with the same static shapes, each in its own compact rank space,
@@ -25,7 +27,6 @@ space the shards' map sums meet in.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 from dataclasses import dataclass, field
 
@@ -42,8 +43,6 @@ from comapreduce_tpu_torch.mapmaking.pixel_space import (PixelSpace,
 # reference defines it
 __all__ = ["PointingPlan", "build_pointing_plan", "build_sharded_plans",
            "binned_window_sum"]
-
-logger = logging.getLogger("comapreduce_tpu_torch")
 
 #: the plan's index arrays, uploaded by :meth:`PointingPlan.device`
 DEVICE_FIELDS = ("sample_perm", "sample_pair", "sample_base", "pair_rank",
@@ -145,24 +144,21 @@ def _resolve_pair_batch(pair_batch) -> int:
     return max(int(pair_batch), 0)
 
 
-def _consult_plan_winner(n_samples: int, offset_length: int) -> None:
-    """The ``[tuning]`` ``plan`` winner for this ``(N, L)`` bucket: auto
-    merging stays at 1 on the H100 until it measures otherwise, so a
-    winner above 1 (measured on the reference's MXU) is logged and
-    skipped (a cache file never makes a plan build raise)."""
+def _consult_plan_winner(n_samples: int, offset_length: int):
+    """The ``[tuning]`` ``plan`` winner's ``pair_batch`` for this
+    ``(N, L)`` bucket, or None (``pointing_plan.py:287-300``): disabled
+    (no table) one attribute check; the lookup keys on this process's
+    identity, so only a winner measured on this device matches."""
     from comapreduce_tpu_torch.tuning.cache import TUNING
 
     if not TUNING.enabled:
-        return
+        return None
     from comapreduce_tpu_torch.tuning.space import plan_bucket
 
     win = TUNING.winner("plan", plan_bucket(n_samples, offset_length))
-    if win and win.get("pair_batch") and int(win["pair_batch"]) != 1:
-        logger.warning("[tuning] plan winner pair_batch=%s for bucket "
-                       "N=%d L=%d skipped: merged pair chunks were "
-                       "measured on the reference's MXU, not on this "
-                       "device; pass pair_batch to pin it",
-                       win["pair_batch"], n_samples, offset_length)
+    if win and win.get("pair_batch"):
+        return max(int(win["pair_batch"]), 1)
+    return None
 
 
 def build_pointing_plan(pixels: np.ndarray, npix, offset_length: int,
@@ -177,12 +173,12 @@ def build_pointing_plan(pixels: np.ndarray, npix, offset_length: int,
     (``pointing_plan.py:187``); the arrays equal the reference's byte for
     byte. ``pixels``: integer pixel per sample (invalid = negative or
     >= npix), length a multiple of ``offset_length``. ``pair_batch``:
-    pair chunks merged per binning step (``None``/0: auto, which is 1
-    here; see the module docstring); the plan's ``pair_chunk`` is the
-    merged chunk. ``min_pair_pad`` / ``min_windows`` (sample, rank,
-    offset) pad the pair space and widen the windows to at least these
-    sizes, so that every shard of :func:`build_sharded_plans` has the
-    same static shapes."""
+    pair chunks merged per binning step (``None``/0: auto, a measured
+    ``[tuning]`` winner else 1; see the module docstring); the plan's
+    ``pair_chunk`` is the merged chunk. ``min_pair_pad`` /
+    ``min_windows`` (sample, rank, offset) pad the pair space and widen
+    the windows to at least these sizes, so that every shard of
+    :func:`build_sharded_plans` has the same static shapes."""
     pixels, npix = _resolve_pixel_space(pixels, npix, pixel_space)
     pixels = np.asarray(pixels).astype(np.int64).ravel()
     N = pixels.size
@@ -190,8 +186,7 @@ def build_pointing_plan(pixels: np.ndarray, npix, offset_length: int,
         raise ValueError(f"N={N} not a multiple of L={offset_length}")
     pb = _resolve_pair_batch(pair_batch)
     if pb == 0:
-        _consult_plan_winner(N, offset_length)
-        pb = 1
+        pb = _consult_plan_winner(N, offset_length) or 1
     n_offsets = N // offset_length
     offs = np.arange(N, dtype=np.int64) // offset_length
     valid = (pixels >= 0) & (pixels < npix)

@@ -24,7 +24,15 @@ Each sample carries the Stokes basis ``s_t = [1, cos 2psi_t, sin
 The per-pixel 3 x 3 work (determinant, inverse, solve) is
 ``torch.linalg``, as the reference's is ``jnp.linalg`` outside any
 Pallas kernel. Pixels with too little angle diversity are masked
-(:func:`_ata_scale_solvable`, one rule for both paths). Both entry points
+(:func:`_ata_scale_solvable`, one rule for both paths). The planned
+solve holds its masked inverses in float64 and applies them in float64
+(:func:`_masked_inverse`, :func:`_apply_inverse`), on the card as on the
+CPU: a kept pixel's normalised determinant may be as small as 1e-6, and
+an f32 inverse of such a block, stored or applied, errs by a large part
+of the map it solves for, which left the CG operator inconsistent and
+the solve landing 2-3x above the reference on its hard problem
+(``tests/torch_pol_spread.py``). Every input and output of those steps
+stays float32, and every sum stays K3's. Both entry points
 take numpy arrays or tensors and compute on ``device`` (``None``: the
 card; raises without one). ``axis_name`` is the reference's sharded
 scatter solve (``polarization.py:102-116``): inside an SPMD run
@@ -99,6 +107,34 @@ def _tikhonov(ata, scale):
     """The per-pixel floor, scaled to each pixel's weight."""
     eye = torch.eye(3, dtype=ata.dtype, device=ata.device)
     return ata + (1e-6 * scale)[:, None, None] * eye
+
+
+def _masked_inverse(ata, scale, rcond_ok):
+    """The planned solve's prefactor: each ``A_p`` (f32[R, 3, 3], with
+    its f32 trace scale) Tikhonov-regularised, inverted and held in
+    float64, an unsolvable pixel's inverse all zero. f64[R, 3, 3]. A kept
+    block may have a normalised determinant near 1e-6: its f32 inverse
+    (the reference's) errs by up to ``eps_f32 x cond``, a large part of
+    the map it solves for."""
+    inv = torch.linalg.inv(_tikhonov(ata.double(), scale.double()))
+    return torch.where(rcond_ok[:, None, None], inv, torch.zeros(
+        (), dtype=inv.dtype, device=inv.device))
+
+
+def _apply_inverse(inv_a, b_rank):
+    """``m = A_p^-1 b_p`` for every pixel: (3, R) -> (3, R) in ``b_rank``'s
+    dtype, the products and sums in ``inv_a``'s."""
+    return torch.einsum("rkj,jr->kr", inv_a,
+                        b_rank.to(inv_a.dtype)).to(b_rank.dtype)
+
+
+def _pair_quadratic(inv_a_off, pws_off):
+    """Each pair's ``s^T A_p^-1 s``, ``pws_off`` f32[3, P] against its
+    pixel's inverse ``inv_a_off`` [P, 3, 3], in the inverse's dtype and
+    rounded once to ``pws_off``'s: f32[P]."""
+    pws = pws_off.to(inv_a_off.dtype)
+    return torch.einsum("pij,ip,jp->p", inv_a_off, pws,
+                        pws).to(pws_off.dtype)
 
 
 def _pol_accumulate(pixels, weights, c2, s2, npix, axis_name=None):
@@ -214,8 +250,11 @@ def destripe_pol_planned(tod, weights, psi, plan, n_iter: int = 100,
     products. The CG is preconditioned by the floored Jacobi of the
     reference: ``diag(A)`` is ``sum w`` per offset less each pair's
     ``s^T A_p^-1 s``, and an offset whose diagonal falls below
-    ``_POL_JACOBI_FLOOR`` of its ``sum w`` takes ``sum w`` instead (plain
-    CG breaks down in f32 on the hard problem, ``polarization.py:214``)."""
+    ``_POL_JACOBI_FLOOR`` of its ``sum w`` takes ``sum w`` instead
+    (``polarization.py:214``). The inverses are float64
+    (:func:`_masked_inverse`), and so are their products with the pair
+    and rank vectors (the map solves, each pair's ``s^T A_p^-1 s``),
+    each rounded once to float32 before K3 sums it."""
     dev = resolve_device(device)
     tod, weights, psi = (_on(x, dev) for x in (tod, weights, psi))
     if tod.ndim != 1:
@@ -274,25 +313,29 @@ def destripe_pol_planned(tod, weights, psi, plan, n_iter: int = 100,
                        torch.stack([e1, e3, e4], -1),
                        torch.stack([e2, e4, e5], -1)], -2)   # (R, 3, 3)
     scale, rcond_ok = _ata_scale_solvable(ata, hits)
-    # the masked prefactor: an unsolvable pixel reads an all-zero inverse
-    inv_a = torch.where(rcond_ok[:, None, None],
-                        torch.linalg.inv(_tikhonov(ata, scale)), zero)
+    # the masked prefactor (f64): an unsolvable pixel reads an all-zero
+    # inverse
+    inv_a = _masked_inverse(ata, scale, rcond_ok)
 
     pws_off = pws[:, perm_off]
     pwds_off = pwds[:, perm_off]
     diag = off_sum(pws_off[0])                            # sum w per offset
     # exact diag(A): sum w less each pair's s^T A_p^-1 s, floored
     if n_rank:
-        inv_a_off = torch.where(pr_ok[:, None, None], inv_a[pr_clip], zero)
+        inv_a_off = torch.where(pr_ok[:, None, None], inv_a[pr_clip],
+                                torch.zeros((), dtype=inv_a.dtype,
+                                            device=dev))
     else:
-        inv_a_off = torch.zeros((P_pad, 3, 3), dtype=f32, device=dev)
-    quad = torch.einsum("pij,ip,jp->p", inv_a_off, pws_off, pws_off)
+        inv_a_off = torch.zeros((P_pad, 3, 3), dtype=inv_a.dtype,
+                                device=dev)
+    quad = _pair_quadratic(inv_a_off, pws_off)
+    del inv_a_off
     inv_diag = _jacobi_inverse(diag - off_sum(quad), diag,
                                floor=_POL_JACOBI_FLOOR)
 
     def solve_map(b_rank):
         """m = masked A^-1 b, (3, n_rank) -> (3, n_rank)."""
-        return torch.einsum("rkj,jr->kr", inv_a, b_rank)
+        return _apply_inverse(inv_a, b_rank)
 
     def gather_a(a):
         return a[pair_off_clip]

@@ -9,7 +9,8 @@ rule, the rule calling the port's own validators:
   the candidate as it is and :func:`~comapreduce_tpu_torch.ops.reduce.
   plan_reduce_memory` accepts it with some scan streaming;
 - ``pair_batch`` (group ``plan``): merged pair chunks of the pointing
-  plan;
+  plan, valid when the merged plan builds at the bucket and K3 and K4
+  take every launch on its layouts (:func:`_valid_pair_batch`);
 - ``mg_block`` / ``mg_smooth`` (group ``solver``): the multigrid
   ladder, valid under ``destriper._check_precond``, the config layer's
   ranges (``mg_block >= 2``, ``mg_smooth >= 1``) and the
@@ -20,9 +21,11 @@ rule, the rule calling the port's own validators:
 Differences from the reference's space, each because the port's
 validator says so (the grids themselves are the reference's):
 
-- ``pair_batch``: only 1 is valid. The port's ``build_pointing_plan``
-  refuses merged chunks (``pair_batch > 1``), so 2, 4 and 8 are filtered
-  as invalid where the reference keeps those its one-hot budget allows.
+- ``pair_batch``: the reference keeps the candidates whose merged
+  one-hot block (chunk x window, f32) fits its MXU budget; the card has
+  no one-hot, so the port keeps those its kernels' wrappers take
+  (:func:`_valid_pair_batch`), every candidate below two billion
+  samples.
 - ``kernels``: the only value is ``"auto"``, the one ``[Destriper]
   kernels`` value the map-maker's CLI accepts (``_refuse_kernels``: the
   port runs its CUDA kernels); the reference's ``xla`` / ``pallas`` are
@@ -140,12 +143,42 @@ def _valid_feed_batch(fb: int, ctx: SpaceContext) -> bool:
     return True
 
 
-def _valid_pair_batch(pb: int, ctx: SpaceContext) -> bool:
-    """Only 1: the port's ``build_pointing_plan`` refuses merged pair
-    chunks. (At 1 the reference's one-hot budget rule always holds: a
-    4 096 x 4 096 f32 block is its 64 MiB floor.)"""
-    del ctx
-    return int(pb) == 1
+def _valid_pair_batch(pb: int, ctx: SpaceContext, pair_chunk: int = 4096,
+                      sample_chunk: int = 8192) -> bool:
+    """The port's rule: ``build_pointing_plan(..., pair_batch=pb)`` (its
+    default chunks) builds at the bucket's ``N`` and ``L``, and every K3
+    and K4 launch on that plan's layouts is one their wrappers take.
+
+    - The plan builds when ``pb >= 1`` and ``L`` divides ``N``
+      (``mapmaking/pointing_plan.py:185``).
+    - K3's one-pass body, which every plan site takes, refuses ``M >=
+      2**31 - 2 x ONE_PASS_TILE`` elements (``mapmaking/cuda_binning.py:
+      150``). ``M`` is ``N`` padded to ``sample_chunk`` at the pair sums
+      and the pair count padded to the merged chunk ``pair_chunk x pb``
+      at the rank and offset sums; a plan has at most ``N`` pairs.
+    - K4, the ground route's gather over the same padded pairs, refuses
+      ``M > 2**31 - 1`` (``mapmaking/cuda_binning.py:242``), which K3's
+      limit implies.
+    - Neither places a limit on a window: K3's one-pass body tests
+      ``id - base < window`` unsigned (``csrc/binned_window_sum.cu:548``)
+      and K4 clamps each chunk's start (``csrc/windowed_gather.cu:38``).
+
+    ``N = 0`` (not constrained) keeps every candidate. The reference's
+    one-hot budget (``tuning/space.py:143``) bounds an MXU block, which
+    the card does not have."""
+    from comapreduce_tpu_torch.mapmaking.cuda_binning import ONE_PASS_TILE
+    from comapreduce_tpu_torch.mapmaking.pointing_plan import _round_up
+
+    pb, n, L = int(pb), int(ctx.n_samples), int(ctx.offset_length)
+    if pb < 1:
+        return False
+    if not n:
+        return True
+    if L and n % L:
+        return False
+    k3_max = 2 ** 31 - 2 * ONE_PASS_TILE
+    return (_round_up(n, sample_chunk) < k3_max
+            and _round_up(n, pair_chunk * pb) < k3_max)
 
 
 def _valid_solver(combo: dict, ctx: SpaceContext) -> bool:

@@ -7,17 +7,19 @@
 - ``TuningConfig`` coercion; ``TUNING.configure`` installs the declared
   device memory;
 - ``enumerate_group`` / ``validate_combo`` equal to the reference's but
-  for the stated port differences (``pair_batch`` 1 only; ``kernels``
-  ``auto`` only);
+  for the stated port differences (``pair_batch`` by the port's kernel
+  limits, not the MXU budget; ``kernels`` ``auto`` only);
 - successive halving and the paired confirmation on a fake clock: the
   same sweep records, measurement counts and winners in both packages, a
   warm second tuner taking 0 measurements;
 - a reference-written ``tuning.jsonl`` consulted by both packages'
   ``plan_stage_feed_batch`` (the same feed batches) and by both
   ``run_destriper.main`` with ``[Tuning]`` (the same applied winners,
-  maps within the CLI tests' tolerances); a ``kernels = xla`` winner and
-  a ``pair_batch = 4`` plan winner the port logs and skips without
-  raising;
+  maps within the CLI tests' tolerances); a ``kernels = xla`` winner the
+  port logs and skips without raising;
+- a ``plan`` winner under this process's identity sets the auto
+  ``pair_batch``; one under another identity, an explicit ``pair_batch``
+  or ``COMAP_PAIR_BATCH``, or no ``[tuning]`` leaves the plan as it is;
 - ``control.policy``'s ``mg_block`` winner, as the reference decides;
 - ``tune_report``'s summary and rendering equal to the reference tool's,
   and its selftest.
@@ -41,6 +43,7 @@ import comapreduce_tpu_torch.cli.run_destriper as port_rd
 import comapreduce_tpu_torch.tuning as tuning
 import comapreduce_tpu_torch.tuning.tuner as tuner_mod
 from comapreduce_tpu_torch.cli import tune_report
+from chip_smoke import same_plan
 from test_torch_run_destriper_cli import (  # noqa: F401 (a fixture)
     _assert_maps_match, _read_maps, _write_ini, l2files)
 
@@ -164,22 +167,54 @@ CTXS = {
     "solver_short": dict(n_samples=1_000, offset_length=50),
     "plan": dict(n_samples=10_307_200, offset_length=50,
                  hbm_bytes=80 << 30),
+    "plan_unconstrained": dict(),
+    "plan_not_a_multiple": dict(n_samples=10_307_201, offset_length=50),
+    "plan_k3_drops_8": dict(n_samples=2**31 - 16_384, offset_length=64),
+    "plan_k3_drops_4": dict(n_samples=2**31 - 8_192, offset_length=64),
+    "plan_k3_drops_all": dict(n_samples=2**31 - 4_096, offset_length=64),
+}
+
+#: the ``pair_batch`` values the port keeps at each plan context, and why
+#: (``tuning/space.py::_valid_pair_batch``; K3's one-pass body takes
+#: ``M < 2**31 - 4 096``, K4 ``M <= 2**31 - 1``)
+PLAN_KEPT = {
+    # the full field's band 0: every merged plan is far inside both
+    # kernels' limits (the reference's 80 GiB MXU budget drops 8)
+    "plan": [1, 2, 4, 8],
+    # no bucket geometry: nothing to judge against
+    "plan_unconstrained": [1, 2, 4, 8],
+    # L does not divide N: no plan builds
+    "plan_not_a_multiple": [],
+    # pairs padded to 32 768 x 8 reach 2**31
+    "plan_k3_drops_8": [1, 2, 4],
+    # pairs padded to 16 384 x 4 reach 2**31
+    "plan_k3_drops_4": [1, 2],
+    # N itself is K3's limit at every site, the pair sums' padded
+    # samples (8 192 a chunk) reach 2**31
+    "plan_k3_drops_all": [],
 }
 
 
 @pytest.mark.parametrize("name", list(CTXS))
 def test_enumerate_group_like_the_reference(name):
     """The same combos and filtered counts, but for the stated port
-    differences: the plan group keeps ``pair_batch`` 1 only (the port's
-    plan builder refuses merged chunks)."""
+    difference: the plan group keeps the ``pair_batch`` values whose
+    merged plan builds and whose layouts K3 and K4 take
+    (:data:`PLAN_KEPT`), where the reference keeps those whose one-hot
+    block fits its MXU budget."""
     group = name.split("_")[0]
     got = tuning.enumerate_group(group, tuning.SpaceContext(**CTXS[name]))
     want = ref_tuning.enumerate_group(
         group, ref_tuning.SpaceContext(**CTXS[name]))
     if group == "plan":
-        assert got.combos == [{"pair_batch": 1}]
-        assert got.invalid_filtered == 3
-        assert {"pair_batch": 1} in want.combos
+        assert got.combos == [{"pair_batch": pb} for pb in PLAN_KEPT[name]]
+        assert got.invalid_filtered == 4 - len(PLAN_KEPT[name])
+        for pb in (1, 2, 4, 8):
+            assert tuning.validate_combo(
+                "plan", {"pair_batch": pb},
+                tuning.SpaceContext(**CTXS[name])) == (pb in PLAN_KEPT[name])
+        if name == "plan":
+            assert want.combos == [{"pair_batch": pb} for pb in (1, 2, 4)]
     else:
         assert got.combos == want.combos
         assert got.invalid_filtered == want.invalid_filtered
@@ -303,25 +338,99 @@ def test_reference_stage_winner_sizes_both_planners(tmp_path, both_tuning):
                                  hbm_bytes=hbm) == 2
 
 
-def test_plan_winner_above_one_is_skipped(tmp_path, both_tuning, caplog):
-    """A plan winner of ``pair_batch = 4`` (the reference's MXU trade)
-    is logged and skipped: the port's plan is the untuned one."""
+def _plan_pixels():
     import numpy as np
 
+    return np.arange(5000) % 97
+
+
+def test_plan_winner_above_one_is_applied(tmp_path, both_tuning):
+    """A ``plan`` winner of ``pair_batch = 4`` keyed by this process's
+    identity (``("cpu", "cpu")`` here, the card's name on the card) sets
+    the auto value, as the reference applies it
+    (``pointing_plan.py:287-300``): the plan is the ``pair_batch = 4``
+    plan byte for byte, in both packages."""
+    from comapreduce_tpu.mapmaking.pointing_plan import \
+        build_pointing_plan as ref_build
     from comapreduce_tpu_torch.mapmaking.pointing_plan import \
         build_pointing_plan
 
-    pixels = np.arange(5000) % 97
-    untuned = build_pointing_plan(pixels, 97, 50)
+    pixels = _plan_pixels()
     ref_tuning.TuningCache(ref_tuning.tuning_path(str(tmp_path))).put(
         _winner("plan", ref_tuning.plan_bucket(5000, 50),
                 {"pair_batch": 4}, {"pair_batch": 1}))
     tuning.TUNING.configure(str(tmp_path), {"enabled": True})
-    with caplog.at_level(logging.WARNING, logger="comapreduce_tpu_torch"):
+    ref_tuning.TUNING.configure(str(tmp_path), {"enabled": True})
+    plan = build_pointing_plan(pixels, 97, 50)
+    assert plan.pair_batch == 4
+    assert same_plan(plan, build_pointing_plan(pixels, 97, 50,
+                                                pair_batch=4))
+    assert ref_build(pixels, 97, 50).pair_batch == 4
+
+
+def test_plan_winner_of_another_identity_is_not_applied(tmp_path,
+                                                        both_tuning):
+    """A winner keyed by another device (the reference's TPU identity, or
+    another card) never matches: the plan is the untuned one."""
+    from comapreduce_tpu_torch.mapmaking.pointing_plan import \
+        build_pointing_plan
+
+    pixels = _plan_pixels()
+    untuned = build_pointing_plan(pixels, 97, 50)
+    cache = tuning.TuningCache(tuning.tuning_path(str(tmp_path)))
+    bucket = tuning.plan_bucket(5000, 50)
+    for platform, kind in (("tpu", "TPU v5 lite"),
+                           ("gpu", "NVIDIA H100 80GB HBM3")):
+        key = tuning.content_key(platform, kind, bucket, "",
+                                 tuning.SPACE_VERSION, "plan")
+        cache.put(_winner("plan", bucket, {"pair_batch": 8},
+                          {"pair_batch": 1}, key=key, platform=platform,
+                          device_kind=kind))
+    tuning.TUNING.configure(str(tmp_path), {"enabled": True})
+    assert tuning.TUNING.winner("plan", bucket) is None
+    plan = build_pointing_plan(pixels, 97, 50)
+    assert plan.pair_batch == 1 and same_plan(plan, untuned)
+
+
+@pytest.mark.parametrize("pin", ["argument", "environment"])
+def test_explicit_pair_batch_pins_over_a_plan_winner(tmp_path, both_tuning,
+                                                     monkeypatch, pin):
+    """``pair_batch=1`` or ``COMAP_PAIR_BATCH=1`` keeps the unmerged plan
+    over a ``pair_batch = 4`` winner, as in the reference."""
+    from comapreduce_tpu_torch.mapmaking.pointing_plan import \
+        build_pointing_plan
+
+    pixels = _plan_pixels()
+    untuned = build_pointing_plan(pixels, 97, 50)
+    tuning.TuningCache(tuning.tuning_path(str(tmp_path))).put(
+        _winner("plan", tuning.plan_bucket(5000, 50), {"pair_batch": 4},
+                {"pair_batch": 1}))
+    tuning.TUNING.configure(str(tmp_path), {"enabled": True})
+    if pin == "argument":
+        plan = build_pointing_plan(pixels, 97, 50, pair_batch=1)
+    else:
+        monkeypatch.setenv("COMAP_PAIR_BATCH", "1")
         plan = build_pointing_plan(pixels, 97, 50)
+    assert plan.pair_batch == 1 and same_plan(plan, untuned)
+
+
+def test_plan_without_tuning_is_the_untuned_plan(tmp_path, both_tuning):
+    """With a winners file present but no ``[tuning]`` table, the auto
+    plan is byte for byte the ``pair_batch = 1`` plan, and no lookup is
+    made."""
+    from comapreduce_tpu_torch.mapmaking.pointing_plan import \
+        build_pointing_plan
+
+    pixels = _plan_pixels()
+    cache = tuning.TuningCache(tuning.tuning_path(str(tmp_path)))
+    cache.put(_winner("plan", tuning.plan_bucket(5000, 50),
+                      {"pair_batch": 4}, {"pair_batch": 1}))
+    tuning.TUNING.configure(str(tmp_path), {"enabled": False})
+    plan = build_pointing_plan(pixels, 97, 50)
     assert plan.pair_batch == 1
-    assert np.array_equal(plan.pair_rank, untuned.pair_rank)
-    assert "plan winner pair_batch=4" in caplog.text
+    assert same_plan(plan, build_pointing_plan(pixels, 97, 50,
+                                                pair_batch=1))
+    assert tuning.TUNING.cache.hits == tuning.TUNING.cache.misses == 0
 
 
 MG_INI = "[Destriper]\npreconditioner : multigrid\n"
@@ -419,8 +528,12 @@ def test_tune_report_like_the_reference(tmp_path, capsys):
 def test_chip_phase_n_rehearses_on_the_cpu(tmp_path, monkeypatch,
                                           both_tuning):
     """``chip_smoke``'s phase N on the CPU at FIELD_SMALL: N.1 on
-    ``("cpu", "cpu")`` (the same bits), N.2 twice bitwise, N.3's sweeps
-    (a warm second tuner measuring nothing) and the map-maker's
+    ``("cpu", "cpu")`` (the same bits) and the reference's hard polarized
+    problem (the test module's own, under 5e-3 after 300 iterations), N.2
+    twice bitwise, N.3's sweeps (the plan group over pair_batch 1, 2, 4
+    and 8 at band 0's bucket, the auto plan under ``[tuning]`` the
+    winner's layout, every candidate's solve the untuned one's bits; a
+    warm second tuner measuring nothing) and the map-maker's
     ``[Tuning]`` consult on the pipeline test's Level-2 store."""
     import chip_smoke as cs
     from comapreduce_tpu_torch.data.synthetic import generate_level1_store
@@ -430,9 +543,16 @@ def test_chip_phase_n_rehearses_on_the_cpu(tmp_path, monkeypatch,
     from comapreduce_tpu_torch.mapmaking.pointing_plan import \
         build_pointing_plan
 
+    import numpy as np
+    from test_torch_polarization import hard_problem
+
     monkeypatch.setattr(cs, "POL_DIR", str(tmp_path / "pol_tuning"))
+    for got, want in zip(cs.pol_hard_problem(), hard_problem()):
+        np.testing.assert_array_equal(got, want)
     small = cs.phase_pol_small(devices=("cpu", "cpu"))
     assert small["planned"]["iqu_destriped"] == 0.0
+    assert small["hard"]["n_iter"] == 300
+    assert small["hard"]["residual"] < cs.POL_HARD_BOUND == 5e-3
     geo = field_geometry(FIELD_SMALL)
     plan = build_pointing_plan(geo[0], FIELD_SMALL.nx * FIELD_SMALL.ny,
                                OFFSET_LENGTH)
@@ -453,5 +573,12 @@ def test_chip_phase_n_rehearses_on_the_cpu(tmp_path, monkeypatch,
         port_log.removeHandler(stage_log)
     assert line["warm"]["measurements"] == 0
     assert line["cold"]["invalid_proposed"] == 0
+    assert line["warm"]["cache_hits"] == 3
+    sweep = line["plan"]
+    assert sorted(sweep["P_pad"]) == ["1", "2", "4", "8"]
+    assert len(sweep["candidates_ms"]) == 4
+    assert sweep["tuned_layout_equal"]
+    assert sweep["tuned_pair_batch"] == sweep["winner"]
+    assert all(sweep["solve_bits_equal"].values())
     assert line["consult"]["tuned"]["applied"]
     assert line["map_gap_of_scale"] <= line["gap_limit"]
