@@ -382,6 +382,15 @@ TOD_RTOL = 2e-3
 MAP_ATOL = 5e-4
 # f32 unit roundoff, for K3's summation bound (check_window_sum)
 F32_U = 2.0 ** -24
+# K5 against its plain version on the card, relative 2-norm gaps: each
+# row's sums (n <= L terms) add in the kernel's fixed order, not
+# PyTorch's, and two f32 orders of n terms differ by ~sqrt(n) u of the
+# sum (7e-6 at L = 13 568); offset, slope and norm are ratios of such
+# sums. ``clean`` is ``(d - model) / norm`` with the model ~99% of the
+# counts at production scale, so the cancellation multiplies the
+# offset's gap by ~100
+PREFILTER_RTOL = {"clean": 1e-3, "offset": 1e-5, "slope": 1e-5,
+                  "norm": 1e-5}
 # card vs CPU on the small field run: the tolerance of the CPU port
 # against the reference there (tests/test_torch_solve_band.py), the
 # converged ground solve's null-space-invariant products
@@ -637,6 +646,65 @@ def fill_edge_rows(L: int, seed: int = 23):
     tod[6, grid[4]], tod[6, grid[9]] = -1e30, 1e30
     mask[7] = 0.0
     return tod, mask
+
+
+def prefilter_edge_rows(L: int, seed: int = 29):
+    """K5 inputs at the edges of its arithmetic (numpy ``d``, ``m``
+    f32[2, 1, 8, L] and ``a`` f32[2, L]): scan 0 under a varying
+    airmass, scan 1 under a constant one (1.5: its masked mean is exact,
+    so ``saa`` is 0 and the slope 0). In each scan: production-scale
+    counts with 1% masked out; every sample masked out (``cnt`` 0: slope
+    and norm 0, clean 0); one valid sample (``cnt`` 1: slope 0, no pair:
+    norm 0); only the odd samples valid (a fitted row with no pair: norm
+    0, clean 0); a NaN masked in off the pair grid (the offset NaN; under
+    the varying airmass the slope and norm NaN too and clean 0, under
+    the constant one the slope 0, norm finite and clean NaN); mask
+    weights drawn from {0, 0.5, 1, 1.5, 2} (sums of weights and of
+    weights x 1.5 stay exact, so the constant airmass's fit stays
+    degenerate); counts near zero of both signs; the padded tail masked
+    out past 3/4 of the row."""
+    rng = np.random.default_rng(seed)
+    S, C = 2, 8
+    t = np.arange(L)
+    a = np.stack([1.2 + 0.05 * np.sin(t / 150.0),
+                  np.full(L, 1.5)]).astype(np.float32)
+    d = (4.5e7 * (1 + 0.01 * rng.standard_normal((S, 1, C, L)))
+         + 3e5 * a[:, None, None, :]).astype(np.float32)
+    m = (rng.random((S, 1, C, L)) > 0.01).astype(np.float32)
+    m[:, 0, 1] = 0.0
+    m[:, 0, 2] = 0.0
+    m[:, 0, 2, L // 3] = 1.0
+    m[:, 0, 3] = 0.0
+    m[:, 0, 3, 1::2] = 1.0
+    d[:, 0, 4, min(17, L - 1)] = np.nan
+    m[:, 0, 4, min(17, L - 1)] = 1.0
+    m[:, 0, 5] = rng.choice(np.array([0.0, 0.5, 1.0, 1.5, 2.0], np.float32),
+                            (S, L))
+    d[:, 0, 6] = rng.standard_normal((S, L)).astype(np.float32)
+    m[:, 0, 7, 3 * L // 4:] = 0.0
+    return d, m, a
+
+
+def prefilter_gaps(got, want) -> dict:
+    """Relative 2-norm gaps of K5's outputs (``clean`` and ``stats``'s
+    offset, slope and norm) to another computation of them: where NaN
+    falls must agree (a disagreement reads inf), and the gap is taken
+    over the rest."""
+    import torch
+
+    gaps = {}
+    for k, g, w in (("clean", got[0], want[0]),
+                    *((n, got[1][i], want[1][i]) for i, n in
+                      enumerate(("offset", "slope", "norm")))):
+        g, w = g.double(), w.double()
+        nan = torch.isnan(w)
+        if not torch.equal(torch.isnan(g), nan):
+            gaps[k] = float("inf")
+            continue
+        num = float(torch.linalg.vector_norm(g[~nan] - w[~nan]))
+        den = float(torch.linalg.vector_norm(w[~nan]))
+        gaps[k] = num / den if den else num
+    return gaps
 
 
 def host_mem_total() -> str:
@@ -982,6 +1050,7 @@ def phase_kernel_parity(plan, full, field_plan):
         if not bits_equal(got, masked_fill_plain(t_e, m_e)):
             raise SystemExit(f"K1 masked_fill disagrees with its plain "
                              f"version on the edge rows at L={n}")
+    entries["prefilter"] = prefilter_site(full, g)
 
     # K2 at the exact level of the two-level 6000 filter: 2 scans x 4
     # bands rows of the block-median series, window 500
@@ -1126,11 +1195,96 @@ def phase_kernel_parity(plan, full, field_plan):
     return entries
 
 
+def prefilter_site(full, g) -> dict:
+    """K5 at the scan-batch block (2 scans x 4 bands x 1024 channels rows
+    of L = 13 568; counts ~4.5e7 over an airmass slope, 1% masked out,
+    the padded tail masked out): against its plain version within
+    ``PREFILTER_RTOL``, both against the plain version in float64, one
+    scan launched alone bitwise its rows of the whole block, and the
+    edge rows (``prefilter_edge_rows``) at L, L - 1 and L - 3 (the pair
+    grid's tail); then timed (L2 flushed) beside its bytes bound and the
+    plain version. ``launches_derived`` is what the flagship run derives
+    (one a scan batch of each feed; the stage chain's and phase O's are
+    checked in their phases)."""
+    import torch
+
+    from comapreduce_tpu_torch.ops.prefilter import (
+        prefilter, prefilter_occupancy, prefilter_plain,
+        prefilter_row_on_chip)
+    from comapreduce_tpu_torch.ops.reduce import (ReduceConfig,
+                                                  scan_starts_lengths)
+
+    dev = torch.device("cuda")
+    B, C, S = full.n_bands, full.n_channels, full.scan_batch
+    _, lengths, L = scan_starts_lengths(
+        [(0, full.scan_samples)] * full.n_scans)
+    cfg = ReduceConfig(C)
+    bt = cfg.bandwidth * cfg.tau
+    t = torch.arange(L, device=dev, dtype=torch.float32)
+    a = torch.stack([1.2 + 0.05 * torch.sin(t / 150.0 + s)
+                     for s in range(S)])
+    d = (4.5e7 * (1 + 0.01 * torch.randn((S, B, C, L), generator=g,
+                                         device=dev))
+         + 3e5 * a[:, None, None, :])
+    m = (torch.rand((S, B, C, L), generator=g, device=dev) > 0.01).float()
+    m[..., int(lengths[0]):] = 0.0
+    got = prefilter(d, m, a, bt)
+    want = prefilter_plain(d, m, a, bt)
+    f64 = prefilter_plain(d.double(), m.double(), a.double(), bt)
+    one = prefilter(d[:1].contiguous(), m[:1].contiguous(), a[:1], bt)
+    torch.cuda.synchronize()
+    gaps = prefilter_gaps(got, want)
+    if any(gaps[k] > PREFILTER_RTOL[k] for k in gaps):
+        raise SystemExit(f"K5 prefilter disagrees with its plain version: "
+                         f"{gaps}")
+    if not (bits_equal(one[0], got[0][:1])
+            and bits_equal(one[1], got[1][:, :1])):
+        raise SystemExit("K5 prefilter: one scan launched alone differs "
+                         "from its rows of the whole block")
+    edge = {}
+    for n in (L, L - 1, L - 3):
+        de, me, ae = (torch.as_tensor(x, device=dev)
+                      for x in prefilter_edge_rows(n))
+        edge[n] = prefilter_gaps(prefilter(de, me, ae, bt),
+                                 prefilter_plain(de, me, ae, bt))
+        if any(edge[n][k] > PREFILTER_RTOL[k] for k in edge[n]):
+            raise SystemExit(f"K5 prefilter disagrees with its plain "
+                             f"version on the edge rows at L={n}: "
+                             f"{edge[n]}")
+    rows = S * B * C
+    k_ms = cuda_ms(lambda: prefilter(d, m, a, bt))
+    p_ms = cuda_ms(lambda: prefilter_plain(d, m, a, bt), reps=3, warm=1)
+    # the function's own work: d and m read and clean written once, the
+    # airmass rows read and offset, slope, norm written once; per sample
+    # 16 operations (the fit's two passes, the write), per pair 15 (the
+    # std's two passes)
+    b_ms, by = bound(4 * (3 * rows * L + S * L + 3 * rows),
+                     rows * (16 * L + 15 * (L // 4)))
+    line = dict(
+        name="prefilter", route="cuda",
+        source="comapreduce_tpu_torch/csrc/prefilter.cu",
+        replaces="XLA's fusion of comapreduce_tpu/ops/reduce.py:550 "
+                 "_prefilter_chain (no Pallas kernel)",
+        shape=[rows, L], gaps=gaps,
+        gaps_f64={"kernel": prefilter_gaps(got, f64),
+                  "plain": prefilter_gaps(want, f64)},
+        edge_gaps={str(k): v for k, v in edge.items()},
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+        roofline_pct=100.0 * b_ms / k_ms, library_ms=None,
+        row_on_chip=prefilter_row_on_chip(L),
+        blocks_per_sm=prefilter_occupancy(L),
+        launches_derived={"flagship": full.n_feeds * -(-full.n_scans // S)})
+    log("k5_site", json.dumps(line))
+    return line
+
+
 def phase_large_paths():
     """What the main path's shapes never take, each against its plain
     version: K1's second body, its keys in device scratch and its row read
     twice (L = 300 000 and 300 001, the float4 and the scalar loads),
-    bitwise (every row takes the stride-4 median); K3 on
+    bitwise (every row takes the stride-4 median); K5's second body
+    (its passes over device memory) on the edge rows at the calibrator's
+    scan length, L = 30 336 and 30 337, within ``PREFILTER_RTOL``; K3 on
     ``window_sum_stress_case`` (4 rows), as ``check_window_sum`` holds
     it: the two-pass body with chunk 40's ids shuffled, the one-pass body
     with them sorted back."""
@@ -1138,6 +1292,8 @@ def phase_large_paths():
 
     from comapreduce_tpu_torch.ops.cuda_median import (
         fill_row_on_chip, masked_fill, masked_fill_plain)
+    from comapreduce_tpu_torch.ops.prefilter import (
+        prefilter, prefilter_plain, prefilter_row_on_chip)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -1157,6 +1313,17 @@ def phase_large_paths():
             raise SystemExit(f"K1's second body at L={L} disagrees with "
                              "its plain version")
         out[f"masked_fill_L{L}"] = float((got - want).abs().max())
+    for L in (30_336, 30_337):
+        if prefilter_row_on_chip(L):
+            raise SystemExit(f"K5 at L={L} would keep its row on chip")
+        d, m, a = (torch.as_tensor(x, device=dev)
+                   for x in prefilter_edge_rows(L))
+        gaps = prefilter_gaps(prefilter(d, m, a, 0.04),
+                              prefilter_plain(d, m, a, 0.04))
+        if any(gaps[k] > PREFILTER_RTOL[k] for k in gaps):
+            raise SystemExit(f"K5's second body at L={L} disagrees with "
+                             f"its plain version: {gaps}")
+        out[f"prefilter_L{L}"] = gaps
     # K3's two-pass body on the stress case as it is (ids shuffled in
     # chunk 40), its one-pass body with those ids sorted back
     for sorted_ids, key in ((False, "binned_window_sum_two_pass"),
@@ -1243,10 +1410,12 @@ def phase_full_chain(full, plan):
         binned_window_sum
     from comapreduce_tpu_torch.ops.cuda_median import (
         masked_fill, rolling_median_windows)
+    from comapreduce_tpu_torch.ops.prefilter import prefilter
 
     counters = {"masked_fill": masked_fill,
                 "rolling_median_windows": rolling_median_windows,
-                "binned_window_sum": binned_window_sum}
+                "binned_window_sum": binned_window_sum,
+                "prefilter": prefilter}
     inputs = make_flagship_inputs(full, seed=7, device="cuda")
     warm = run_flagship(inputs, device="cuda", plan=plan)
     torch.cuda.reset_peak_memory_stats()
@@ -1265,9 +1434,9 @@ def phase_full_chain(full, plan):
     for k, n in launches.items():
         if n <= 0:
             raise SystemExit(f"full chain never launched kernel {k}")
-    # K1 and K2 run once per scan batch of each feed
+    # K1, K2 and K5 run once per scan batch of each feed
     per_feed = -(-full.n_scans // full.scan_batch)
-    for k in ("masked_fill", "rolling_median_windows"):
+    for k in ("masked_fill", "rolling_median_windows", "prefilter"):
         if launches[k] != full.n_feeds * per_feed:
             raise SystemExit(f"full chain launched {k} {launches[k]} times, "
                              f"not {full.n_feeds * per_feed}")
@@ -3131,6 +3300,7 @@ def phase_chain_full(machinery: bool = True):
 
     from comapreduce_tpu_torch.ops.cuda_median import (
         masked_fill, rolling_median_windows)
+    from comapreduce_tpu_torch.ops.prefilter import prefilter
     from comapreduce_tpu_torch.ops.reduce import (device_hbm_bytes,
                                                   estimate_reduce_hbm,
                                                   plan_reduce_memory,
@@ -3161,7 +3331,7 @@ def phase_chain_full(machinery: bool = True):
     estimate = estimate_reduce_hbm(fb, B, C, T, S, L, scan_batch=k)
 
     stages = []
-    counters = (masked_fill, rolling_median_windows)
+    counters = (masked_fill, rolling_median_windows, prefilter)
 
     def on_stage(lvl2):
         torch.cuda.synchronize()
@@ -3244,11 +3414,12 @@ def phase_chain_full(machinery: bool = True):
         sig2 = par[..., 0][~np.isnan(par[..., 0])]
         if not (sig2 > 0).all():
             raise SystemExit(f"chain full: {grp} white levels not > 0")
-    # K1 and K2 once per scan chunk of each feed in the reduction, K2
+    # K1, K2 and K5 once per scan chunk of each feed in the reduction, K2
     # once more in Spikes
     chunks = -(-S // k_eff)
     want = {"masked_fill": F * chunks,
-            "rolling_median_windows": F * chunks + 1}
+            "rolling_median_windows": F * chunks + 1,
+            "prefilter": F * chunks}
     if launches != want:
         raise SystemExit(f"chain full launches {launches}, not {want}")
     red = walls["Level1AveragingGainCorrection"]
@@ -6061,7 +6232,8 @@ def phase_synth_full(device: str = "cuda", base=None, tuning_src=None,
             "programs": [{k: r.get(k) for k in (
                 "name", "shape_bucket", "argument_bytes", "output_bytes",
                 "temp_bytes")} for r in programs]}
-    want_built = sorted(("masked_fill", "rolling_median")) if on_card \
+    want_built = sorted(("masked_fill", "rolling_median", "prefilter")) \
+        if on_card \
         else []
     bad = []
     if warm.errors or not warm.done or len(warm.shapes) != len(files):
@@ -7696,8 +7868,8 @@ def phase_sharded_reduce(n_feeds: int = 2, device: str = "cuda",
     stage's ``feed_batch`` 2 of the flagship's feeds: 4 x 1024 x 135 704
     counts a feed, made on the card, NaN outside the scans, ``mask=None``
     as the stage passes it), against the one-device reduction (a
-    one-shard mesh, ``reduce_feeds``' bits): every product bitwise, K1
-    and K2 launched per shard once per feed and scan batch. ``device``
+    one-shard mesh, ``reduce_feeds``' bits): every product bitwise, K1,
+    K2 and K5 launched per shard once per feed and scan batch. ``device``
     and ``shape`` (``flagship.SMALL``) rehearse it on the CPU."""
     import torch
 
@@ -7742,7 +7914,8 @@ def phase_sharded_reduce(n_feeds: int = 2, device: str = "cuda",
     for c in per_shard["two_shards"]:
         want = n_batches * (n_feeds // 2) if _on_card(dev) else 0
         if c.get("masked_fill", 0) != want or \
-                c.get("rolling_median_windows", 0) != want:
+                c.get("rolling_median_windows", 0) != want or \
+                c.get("prefilter", 0) != want:
             raise SystemExit(f"sharded reduction: launches per shard "
                              f"{per_shard['two_shards']}, want {want} each")
     diff = {}
@@ -7783,6 +7956,7 @@ def phase_observation_step(plan, device: str = "cuda",
                                                 run_flagship)
     from comapreduce_tpu_torch.ops.cuda_median import (
         masked_fill, rolling_median_windows)
+    from comapreduce_tpu_torch.ops.prefilter import prefilter
     from comapreduce_tpu_torch.parallel import (ObservationStep,
                                                 feed_time_mesh, local_mesh)
     from comapreduce_tpu_torch.parallel.sharded import destripe_sharded
@@ -7818,12 +7992,14 @@ def phase_observation_step(plan, device: str = "cuda",
                            medfilt_window=sh.window,
                            scan_batch=sh.scan_batch)
     masked_fill.launches = rolling_median_windows.launches = 0
+    prefilter.launches = 0
     t2 = _sync_on(dev)
     red, res = step(tod, torch.as_tensor(inputs.scan_mask, device=dev),
                     vane, am, pixels, torch.as_tensor(inputs.freq,
                                                       device=dev))
     step_wall = _sync_on(dev) - t2
-    k12 = (masked_fill.launches, rolling_median_windows.launches)
+    k12 = (masked_fill.launches, rolling_median_windows.launches,
+           prefilter.launches)
     del tod, vane
     if not (bits_equal(red["tod"], ref_tod)
             and bits_equal(red["weights"], ref_w)):
@@ -7831,9 +8007,9 @@ def phase_observation_step(plan, device: str = "cuda",
                          "differ from the flagship chain's")
     n_k = F * -(-sh.n_scans // (sh.scan_batch or sh.n_scans)) \
         if _on_card(dev) else 0
-    if k12 != (n_k, n_k):
-        raise SystemExit(f"observation step: K1, K2 launched {k12}, not "
-                         f"({n_k}, {n_k})")
+    if k12 != (n_k, n_k, n_k):
+        raise SystemExit(f"observation step: K1, K2, K5 launched {k12}, "
+                         f"not ({n_k}, {n_k}, {n_k})")
     hits = res.hit_map.cpu().numpy()
     if not np.array_equal(hits, B * fres.hit_map.cpu().numpy()):
         raise SystemExit("observation step: hits are not B x the "
@@ -7862,7 +8038,7 @@ def phase_observation_step(plan, device: str = "cuda",
             "cg_iters": int(res.n_iter), "one_device_cg_iters":
             int(one.n_iter), "residual": float(res.residual),
             "level2_bitwise": True, "naive_diff_of_scale": naive_d,
-            "destriped_diff_of_scale": dest_d, "k1_k2": k12}
+            "destriped_diff_of_scale": dest_d, "k1_k2_k5": k12}
     log("observation_step", json.dumps(line))
     return line
 
@@ -8000,6 +8176,7 @@ def phase_sharded(geo, plan, store_small, stage_log, device: str = "cuda",
     launches["masked_fill"] = sum(c.get("masked_fill", 0) for c in k12)
     launches["rolling_median_windows"] = sum(
         c.get("rolling_median_windows", 0) for c in k12)
+    launches["prefilter"] = sum(c.get("prefilter", 0) for c in k12)
     out["launches"] = launches
     out["walls_s"] = walls
     log(f"phase O {json.dumps(walls)}")
@@ -8475,8 +8652,8 @@ def main() -> int:
         body["launches"] = report["full_chain"]["k3_bodies"][body["body"]]
     for k, v in kernels.items():
         v["launches"] = launches[k]
-        v["phase_m_launches"] = report["observability"]["launches"][k]
-        v["phase_n_launches"] = report["pol_tuning"]["launches"][k]
+        v["phase_m_launches"] = report["observability"]["launches"].get(k)
+        v["phase_n_launches"] = report["pol_tuning"]["launches"].get(k)
         v["phase_o_launches"] = report["sharded"]["launches"][k]
     report["kernels"] = list(kernels.values())
     report["phase_walls_s"] = walls

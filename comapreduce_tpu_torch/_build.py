@@ -56,7 +56,7 @@ __all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "HOST_FLAGS",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: one shared library per source, each with its own C entry points
 KERNEL_SOURCES = ("masked_fill", "rolling_median", "binned_window_sum",
-                  "windowed_gather")
+                  "windowed_gather", "prefilter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: the g++ flags of the host libraries (the JAX package's

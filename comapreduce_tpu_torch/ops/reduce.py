@@ -3,9 +3,10 @@
 
 Scans are gathered into padded ``(k, B, C, L)`` blocks, ``k`` scans at a
 time (``ReduceConfig.scan_batch``; all scans at once when ``None``),
-pushed through the chain — NaN fill (kernel K1), atmosphere fit,
-radiometer normalisation, median-filter high-pass (kernel K2), gain
-solve, band average — as batched tensor ops, and scattered back onto
+pushed through the chain — NaN fill (kernel K1), atmosphere fit and
+radiometer normalisation (kernel K5 on a field observation),
+median-filter high-pass (kernel K2), gain solve, band average — as
+batched tensor ops, and scattered back onto
 the time axis. The reference's per-scan ``vmap`` / ``lax.map`` become
 the leading scan-batch axis and a Python loop over batches (a partial
 last batch included); the reference's ``vmap`` over a feed batch
@@ -29,22 +30,30 @@ import os
 import numpy as np
 import torch
 
+from comapreduce_tpu_torch import _build
 from comapreduce_tpu_torch.ops import gain as gain_ops
-from comapreduce_tpu_torch.ops.atmosphere import fit_airmass_block
 from comapreduce_tpu_torch.ops.average import edge_channel_mask
 from comapreduce_tpu_torch.ops.cuda_median import masked_fill
 from comapreduce_tpu_torch.ops.median_filter import medfilt_highpass
-from comapreduce_tpu_torch.ops.stats import masked_median, masked_std
+from comapreduce_tpu_torch.ops.prefilter import normalise_plain, prefilter
+from comapreduce_tpu_torch.ops.stats import masked_median
 from comapreduce_tpu_torch.telemetry.core import TELEMETRY
 
-__all__ = ["scan_starts_lengths", "extract_scan_blocks", "extract_one_scan",
-           "scatter_scan_blocks", "reduce_feed_scans", "reduce_feeds",
-           "ReduceConfig", "estimate_reduce_hbm", "plan_reduce_memory",
+__all__ = ["KERNEL_LIBRARIES", "scan_starts_lengths", "extract_scan_blocks",
+           "extract_one_scan", "scatter_scan_blocks", "reduce_feed_scans",
+           "reduce_feeds", "ReduceConfig", "estimate_reduce_hbm", "plan_reduce_memory",
            "device_hbm_bytes", "set_device_hbm_override",
            "plan_stage_feed_batch", "stage_feed_batches", "ShapeBuckets",
            "pad_time_axis", "pad_scan_geometry"]
 
 logger = logging.getLogger("comapreduce_tpu_torch")
+
+#: the kernel libraries the reduction launches on the card: K1 (the NaN
+#: fill), K2 (the median filter's rolling medians) and K5 (the atmosphere
+#: fit and radiometer normalisation), built at once before its first scan
+#: batch (one ``nvcc`` each, in parallel, where each first launch would
+#: build its own in turn)
+KERNEL_LIBRARIES = ("masked_fill", "rolling_median", "prefilter")
 
 
 def scan_starts_lengths(edges: np.ndarray, pad_to: int = 128):
@@ -147,10 +156,6 @@ class ReduceConfig:
         self.mask_templates = edge_channel_mask(c, s(20), s(5), s(5))
 
 
-def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
-
-
 # ``fill_bad_data``: masked samples take the per-channel stride-4 masked
 # median (masked-mean fallback) — kernel K1 on the card
 _fill_bad = masked_fill
@@ -161,39 +166,30 @@ def _prefilter_chain(d_s, m_s, a_s, cfg: ReduceConfig):
     radiometer normalisation (``reduce.py:550``). ``d_s``/``m_s``:
     f32[..., B, C, L] (``m_s`` already time-masked); ``a_s``: f32[..., L].
     Returns ``(clean, norm, atmos_fit)``. Spans: ``reduce.fill`` (K1),
-    ``reduce.atmosphere`` (the fit and its model), ``reduce.normalise``
-    (the rms, ``norm``, ``clean``)."""
+    ``reduce.atmosphere`` (field: the fit, the pair std, ``norm`` and
+    ``clean``, kernel K5 on the card; calibrator: the masked median),
+    ``reduce.normalise`` (field: the outputs split and the fit stacked;
+    calibrator: the rms, ``norm``, ``clean``)."""
     span = TELEMETRY.span
+    bandwidth_tau = cfg.bandwidth * cfg.tau
     with span("reduce.fill"):
         d_s = d_s.to(torch.float32)
-        L = d_s.shape[-1]
         d_s = _fill_bad(d_s, m_s)
     with span("reduce.atmosphere"):
-        a_b = a_s.unsqueeze(-2).unsqueeze(-2)              # (..., 1, 1, L)
         if cfg.is_calibrator:
             med = masked_median(d_s, m_s, axis=-1)         # (..., B, C)
             slope = torch.zeros_like(med)
-            base = med
+        else:
+            clean, stats = prefilter(d_s, m_s, a_s, bandwidth_tau)
+    with span("reduce.normalise"):
+        if cfg.is_calibrator:
+            clean, norm = normalise_plain(d_s, m_s, a_s, med, slope,
+                                          bandwidth_tau)
             atmos_fit = torch.stack([med, slope], dim=-2)  # (..., B, 2, C)
         else:
-            base, slope = fit_airmass_block(d_s, a_b, m_s)
+            base, slope, norm = stats.unbind(0)
             atmos_fit = torch.stack([base, slope], dim=-2)
-        model = base.unsqueeze(-1) + slope.unsqueeze(-1) * a_b
-    with span("reduce.normalise"):
-        n4 = L // 4 * 4
-        am_d = (a_s[..., 0:n4:4]
-                - a_s[..., 2:n4:4]).unsqueeze(-2).unsqueeze(-2)
-        diff = ((d_s[..., 0:n4:4] - d_s[..., 2:n4:4])
-                - slope.unsqueeze(-1) * am_d)
-        pm = m_s[..., 0:n4:4] * m_s[..., 2:n4:4]
-        rms = masked_std(diff, pm, axis=-1) / torch.sqrt(_f32(2.0, d_s))
-        norm = (rms * torch.sqrt(_f32(cfg.bandwidth * cfg.tau, d_s))
-                ).unsqueeze(-1)
-        safe = torch.clamp(norm, min=1e-30)
-        clean = torch.where(norm > 0, (d_s - model) / safe,
-                            torch.zeros((), dtype=d_s.dtype,
-                                        device=d_s.device))
-    return clean, norm, atmos_fit
+    return clean, norm.unsqueeze(-1), atmos_fit
 
 
 def _postfilter_chain(filtered, m_s, tv, norm, tsys, sys_gain, freq_scaled,
@@ -268,6 +264,8 @@ def reduce_feed_scans(tod, mask, airmass, starts, lengths, tsys, sys_gain,
     """
     B, C, T = tod.shape
     dev = tod.device
+    if dev.type == "cuda":
+        _build.build(KERNEL_LIBRARIES)
     tod = tod.to(torch.float32)
     if mask is None:
         mask = torch.isfinite(tod).to(tod.dtype)

@@ -58,7 +58,8 @@ from comapreduce_tpu_torch.ops import vane as vane_ops
 from comapreduce_tpu_torch.ops.atmosphere import fit_atmosphere_segments
 from comapreduce_tpu_torch.ops.average import (edge_channel_mask,
                                                frequency_bin)
-from comapreduce_tpu_torch.ops.reduce import (ReduceConfig, ShapeBuckets,
+from comapreduce_tpu_torch.ops.reduce import (KERNEL_LIBRARIES,
+                                              ReduceConfig, ShapeBuckets,
                                               device_hbm_bytes,
                                               pad_scan_geometry,
                                               pad_time_axis,
@@ -603,8 +604,7 @@ class Level1AveragingGainCorrection(_WarmsLibraries, _StageBase):
     :func:`~..ops.reduce.reduce_feeds`, bit for bit. Writes
     ``averaged_tod/{tod, tod_original, weights, scan_edges}``."""
 
-    # K1 (the NaN fill) and K2 (the median filter's rolling medians)
-    kernel_libraries = ("masked_fill", "rolling_median")
+    kernel_libraries = KERNEL_LIBRARIES
 
     groups: tuple = ("averaged_tod",)
     medfilt_window: int = 6000

@@ -196,7 +196,7 @@ def test_warmup_bookkeeping_like_the_reference(synth_obs, jitter_campaign,
 def test_stages_carry_the_reference_warm_hooks():
     """The port's stages with ``warm_programs`` are the reference's; on
     the CPU the hook builds nothing (the plain versions need no library)
-    and the reduction names K1's and K2's libraries."""
+    and the reduction names K1's, K2's and K5's libraries."""
     import comapreduce_tpu.pipeline.stages as ref_stages
     import comapreduce_tpu_torch.pipeline.stages as stages
 
@@ -208,7 +208,8 @@ def test_stages_carry_the_reference_warm_hooks():
         "AtmosphereRemoval", "Level1Averaging",
         "Level1AveragingGainCorrection", "SkyDip"]
     red = stages.Level1AveragingGainCorrection(device="cpu")
-    assert red.kernel_libraries == ("masked_fill", "rolling_median")
+    assert red.kernel_libraries == ("masked_fill", "rolling_median",
+                                    "prefilter")
     events = []
 
     def listen(*e):
