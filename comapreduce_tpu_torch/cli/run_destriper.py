@@ -140,13 +140,20 @@ _PLAN_MEMO: dict = {}
 
 
 def _memoized(tag: str, pixels: np.ndarray, extra_key: tuple, build):
-    """Digest-keyed memo, one slot per tag (``run_destriper.py:63``)."""
-    pixels = np.ascontiguousarray(pixels)
-    key = (pixels.shape, str(pixels.dtype), extra_key,
-           hashlib.sha1(memoryview(pixels)).hexdigest())
-    slot = _PLAN_MEMO.get(tag)
-    if slot is None or slot[0] != key:
-        _PLAN_MEMO[tag] = slot = (key, build(pixels))
+    """Digest-keyed memo, one slot per tag (``run_destriper.py:63``).
+    The lookup is a ``plan.digest`` span (``tag``) that records a
+    ``plan.memo_hit`` or ``plan.memo_miss`` counter; on a miss the build
+    runs inside it."""
+    with TELEMETRY.span("plan.digest", tag=tag):
+        pixels = np.ascontiguousarray(pixels)
+        key = (pixels.shape, str(pixels.dtype), extra_key,
+               hashlib.sha1(memoryview(pixels)).hexdigest())
+        slot = _PLAN_MEMO.get(tag)
+        hit = slot is not None and slot[0] == key
+        TELEMETRY.counter("plan.memo_hit" if hit else "plan.memo_miss",
+                          tag=tag)
+        if not hit:
+            _PLAN_MEMO[tag] = slot = (key, build(pixels))
     return slot[1]
 
 
@@ -972,105 +979,121 @@ def solve_bands_joint(datas, bands, offset_length=50, n_iter=100,
 
     ``sharded=True`` solves the stack on ``mesh`` (default every local
     device of ``device``'s kind), padded to whole offsets per shard; see
-    :func:`solve_band`."""
+    :func:`solve_band`.
+
+    Spans, in the order they run: ``joint`` (``bands``, ``samples`` =
+    nb * n) around the call; under it ``joint.check`` (the sample counts
+    and pixel streams compared), ``joint.upload`` (the ``(nb, n)`` stacks
+    built on ``device``; counter ``h2d_bytes``, their bytes), the plan
+    memo's ``plan.digest``, the solve's ``destripe.*`` spans and
+    ``joint.expand`` (the maps expanded on the host)."""
     if sharded and mesh is not None:
         device = mesh.flat_devices()[0]
     dev = resolve_device(device)
     if trace_iters is None:
         trace_iters = int(n_iter) if solver_trace.trace_enabled() else 0
-    pix0 = np.asarray(datas[0].pixels)
-    for d in datas[1:]:
-        if np.size(d.tod) != np.size(datas[0].tod) \
-                or not np.array_equal(np.asarray(d.pixels), pix0):
-            return None
-    npix = datas[0].npix
     nb = len(bands)
     L = int(offset_length)
-    if sharded:
-        return _solve_bands_joint_sharded(
-            datas, bands, _solve_mesh(mesh, dev), L, n_iter, threshold,
-            coarse_block, watchdog, precond, pair_batch, mg, cg_dot,
-            noise_weight, quality, trace_iters, dev)
     n = (np.size(datas[0].tod) // L) * L
-    pix = pix0[:n]
-    tod = torch.empty((nb, n), dtype=torch.float32, device=dev)
-    wgt = torch.empty((nb, n), dtype=torch.float32, device=dev)
-    w_host = []
-    for i, d in enumerate(datas):
-        w_host.append(np.asarray(d.weights[:n], np.float32))
-        tod[i] = torch.as_tensor(np.asarray(d.tod[:n], np.float32))
-        wgt[i] = torch.as_tensor(w_host[i])
-    kwargs = {}
-    if coarse_block:
-        pat = _coarse_pattern(pix, npix, L, int(coarse_block))
-        pre = []
-        for i in range(nb):
-            t0 = time.perf_counter()
-            pre.append(build_coarse_preconditioner(
-                pix, w_host[i], npix, L, block=int(coarse_block),
-                pattern=pat))
-            dt = time.perf_counter() - t0
-            logger.info("coarse preconditioner built on the host in "
-                        "%.3f s", dt,
-                        extra={"stage": "coarse_build", "seconds": dt})
-        kwargs["coarse"] = (torch.as_tensor(pre[0][0], device=dev),
-                            torch.as_tensor(np.stack([p[1] for p in pre]),
-                                            device=dev))
-    elif mg is not None:
-        try:
-            pats = _mg_patterns(pix, npix, L, int(mg["block"]),
-                                int(mg["levels"]))
-        except MultigridUnavailable as exc:
-            logger.warning("multigrid unavailable for this geometry "
-                           "(%s); running Jacobi", exc)
-            mg = None
-        else:
-            hier = []
+    span = TELEMETRY.span
+    with span("joint", bands=nb, samples=nb * n):
+        pix0 = np.asarray(datas[0].pixels)
+        npix = datas[0].npix
+        with span("joint.check"):
+            same = all(np.size(d.tod) == np.size(datas[0].tod)
+                       and np.array_equal(np.asarray(d.pixels), pix0)
+                       for d in datas[1:])
+        if not same:
+            return None
+        if sharded:
+            return _solve_bands_joint_sharded(
+                datas, bands, _solve_mesh(mesh, dev), L, n_iter,
+                threshold, coarse_block, watchdog, precond, pair_batch, mg,
+                cg_dot, noise_weight, quality, trace_iters, dev)
+        pix = pix0[:n]
+        with span("joint.upload"):
+            tod = torch.empty((nb, n), dtype=torch.float32, device=dev)
+            wgt = torch.empty((nb, n), dtype=torch.float32, device=dev)
+            w_host = []
+            for i, d in enumerate(datas):
+                w_host.append(np.asarray(d.weights[:n], np.float32))
+                tod[i] = torch.as_tensor(np.asarray(d.tod[:n], np.float32))
+                wgt[i] = torch.as_tensor(w_host[i])
+            TELEMETRY.counter("h2d_bytes", tod.nbytes + wgt.nbytes)
+        kwargs = {}
+        if coarse_block:
+            pat = _coarse_pattern(pix, npix, L, int(coarse_block))
+            pre = []
             for i in range(nb):
                 t0 = time.perf_counter()
-                hier.append(build_multigrid_hierarchy(
-                    pix, w_host[i], npix, L, patterns=pats))
+                pre.append(build_coarse_preconditioner(
+                    pix, w_host[i], npix, L, block=int(coarse_block),
+                    pattern=pat))
                 dt = time.perf_counter() - t0
-                logger.info("multigrid hierarchy built on the host in "
-                            "%.3f s", dt,
-                            extra={"stage": "mg_build", "seconds": dt})
-            kwargs["mg"] = stack_multigrid(hier)
-    if noise_weight:
-        banded = stack_banded(
-            [_build_banded(datas[i], noise_weight, quality, b, L, n // L,
-                           unit=f"band{b}(joint)")
-             for i, b in enumerate(bands)])
-        if banded is not None:
-            kwargs["banded"] = (torch.as_tensor(banded[0], device=dev),
-                                torch.as_tensor(banded[1], device=dev))
-    # the banded prior is part of the linear system, not the
-    # preconditioner: the divergence re-solve keeps it
-    sys_kw = {"banded": kwargs["banded"]} if "banded" in kwargs else {}
-    fn, uniq = _planned_solver(pix, npix, L, n_iter, threshold,
-                               compact=True, precond=precond,
-                               pair_batch=pair_batch,
-                               mg_smooth=int(mg["smooth"]) if mg else 1,
-                               cg_dot=cg_dot, trace_iters=trace_iters)
-    trace = _Tracer(datas[0].tod, offset_length, threshold, cg_dot, kwargs,
-                    precond, band="joint",
-                    bands=[f"band{b}" for b in bands])
-    res = _watched_cg(lambda: fn(tod, wgt, **kwargs), watchdog, "joint",
-                      dev)
-    if ("coarse" in kwargs or "mg" in kwargs) and bool(torch.any(
-            torch.as_tensor(res.diverged) != 0)):
-        logger.warning(
-            "joint CG diverged under the %s preconditioner "
-            "(diverged=%s); re-solving with Jacobi from the best "
-            "iterates", "multigrid" if "mg" in kwargs else "coarse",
-            _host(res.diverged))
-        trace.fallback(res)
-        first = res
-        res = _watched_cg(
-            lambda: fn(tod, wgt, x0=first.offsets, **sys_kw),
-            watchdog, "joint(fallback)", dev)
-    trace(res)
-    return [_attach_dict(d, r) for d, r in
-            zip(datas, _expand_joint_results(res, uniq, npix, nb))]
+                logger.info("coarse preconditioner built on the host "
+                            "in %.3f s", dt,
+                            extra={"stage": "coarse_build", "seconds": dt})
+            kwargs["coarse"] = (
+                torch.as_tensor(pre[0][0], device=dev),
+                torch.as_tensor(np.stack([p[1] for p in pre]), device=dev))
+        elif mg is not None:
+            try:
+                pats = _mg_patterns(pix, npix, L, int(mg["block"]),
+                                    int(mg["levels"]))
+            except MultigridUnavailable as exc:
+                logger.warning("multigrid unavailable for this geometry "
+                               "(%s); running Jacobi", exc)
+                mg = None
+            else:
+                hier = []
+                for i in range(nb):
+                    t0 = time.perf_counter()
+                    hier.append(build_multigrid_hierarchy(
+                        pix, w_host[i], npix, L, patterns=pats))
+                    dt = time.perf_counter() - t0
+                    logger.info("multigrid hierarchy built on the host "
+                                "in %.3f s", dt,
+                                extra={"stage": "mg_build",
+                                       "seconds": dt})
+                kwargs["mg"] = stack_multigrid(hier)
+        if noise_weight:
+            banded = stack_banded(
+                [_build_banded(datas[i], noise_weight, quality, b, L,
+                               n // L, unit=f"band{b}(joint)")
+                 for i, b in enumerate(bands)])
+            if banded is not None:
+                kwargs["banded"] = (
+                    torch.as_tensor(banded[0], device=dev),
+                    torch.as_tensor(banded[1], device=dev))
+        # the banded prior is part of the linear system, not the
+        # preconditioner: the divergence re-solve keeps it
+        sys_kw = {"banded": kwargs["banded"]} if "banded" in kwargs else {}
+        fn, uniq = _planned_solver(pix, npix, L, n_iter, threshold,
+                                   compact=True, precond=precond,
+                                   pair_batch=pair_batch,
+                                   mg_smooth=int(mg["smooth"]) if mg else 1,
+                                   cg_dot=cg_dot, trace_iters=trace_iters)
+        trace = _Tracer(datas[0].tod, offset_length, threshold, cg_dot,
+                        kwargs, precond, band="joint",
+                        bands=[f"band{b}" for b in bands])
+        res = _watched_cg(lambda: fn(tod, wgt, **kwargs), watchdog,
+                          "joint", dev)
+        if ("coarse" in kwargs or "mg" in kwargs) and bool(torch.any(
+                torch.as_tensor(res.diverged) != 0)):
+            logger.warning(
+                "joint CG diverged under the %s preconditioner "
+                "(diverged=%s); re-solving with Jacobi from the best "
+                "iterates", "multigrid" if "mg" in kwargs else "coarse",
+                _host(res.diverged))
+            trace.fallback(res)
+            first = res
+            res = _watched_cg(
+                lambda: fn(tod, wgt, x0=first.offsets, **sys_kw),
+                watchdog, "joint(fallback)", dev)
+        trace(res)
+        with span("joint.expand"):
+            return [_attach_dict(d, r) for d, r in
+                    zip(datas, _expand_joint_results(res, uniq, npix, nb))]
 
 
 def band_map_writer(path, data, result):
